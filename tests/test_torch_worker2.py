@@ -1,0 +1,77 @@
+"""The slice as a whole: the port's worker2 (--device cpu, the plain level
+scan) against the JAX package's worker2 with NPT_CNS_ENGINE=device, on
+simulated contigs whose BAM and .bai are written by the JAX package's own
+writer.  The FASTA files must be byte-equal."""
+import pytest
+import torch
+
+from nextpolish_tpu import worker2 as jax_worker2
+from nextpolish_tpu.io import bam as jax_bam
+from nextpolish_tpu_torch import sim
+from nextpolish_tpu_torch import worker2 as torch_worker2
+
+CASES = {  # read type -> (seed, contig lengths, depth, (sub, ins, del))
+    "ont": (31, [12000, 9000], 12, (0.03, 0.03, 0.03)),
+    "hifi": (32, [12000], 12, (0.002, 0.002, 0.002)),
+}
+
+
+def _write_inputs(tmp_path, rt):
+    seed, lens, depth, (sub, ins, dele) = CASES[rt]
+    c = sim.simulate_case(seed, len(lens), lens, depth, read_len=(2000, 5000),
+                          sub=sub, ins=ins, dele=dele)
+    fa = tmp_path / "genome.fa"
+    fa.write_bytes(b"".join(b">" + n.encode() + b"\n" + d + b"\n"
+                            for n, d in zip(c.names, c.drafts)))
+    bam = tmp_path / "reads.sort.bam"
+    hdr = jax_bam.BamHeader("", list(c.names), [len(d) for d in c.drafts])
+    jax_bam.write_bam(str(bam), hdr, c.records, index=True)
+    return c, str(fa), str(bam)
+
+
+@pytest.mark.parametrize("rt", ["ont", "hifi"])
+def test_worker2_matches_jax(tmp_path, rt, monkeypatch):
+    c, fa, bam = _write_inputs(tmp_path, rt)
+    monkeypatch.setenv("NPT_CNS_ENGINE", "device")
+    out_j = tmp_path / "jax.fa"
+    out_t = tmp_path / "torch.fa"
+    assert jax_worker2.main(["-g", fa, "-l", bam, "-r", rt,
+                             "-o", str(out_j)]) == 0
+    assert torch_worker2.main(["-g", fa, "-l", bam, "-r", rt,
+                               "-o", str(out_t), "--device", "cpu"]) == 0
+    got = out_t.read_bytes()
+    assert got == out_j.read_bytes()
+    # and the polish did real work: every contig came back near its length
+    seqs = got.split(b"\n")[1::2]
+    assert len(seqs) == len(c.names)
+    for s, t in zip(seqs, c.truths):
+        assert abs(len(s) - len(t)) < 0.01 * len(t)
+
+
+def test_worker2_resume_and_bam_list(tmp_path, monkeypatch):
+    """A file-of-filenames BAM list and a resumed output give the same
+    FASTA as a fresh run (the last, possibly truncated record is redone)."""
+    c, fa, bam = _write_inputs(tmp_path, "ont")
+    monkeypatch.setenv("NPT_CNS_ENGINE", "native")
+    fresh = tmp_path / "fresh.fa"
+    assert torch_worker2.main(["-g", fa, "-l", bam, "-r", "ont",
+                               "-o", str(fresh), "--device", "cpu"]) == 0
+    fofn = tmp_path / "bams.list"
+    fofn.write_text("reads.sort.bam\n")
+    part = tmp_path / "part.fa"
+    part.write_bytes(fresh.read_bytes()[:-100])
+    assert torch_worker2.main(["-g", fa, "-l", str(fofn), "-r", "ont",
+                               "-o", str(part), "--device", "cpu"]) == 0
+    assert part.read_bytes() == fresh.read_bytes()
+
+
+def test_worker2_cuda_without_card_raises(tmp_path, monkeypatch):
+    """--device cuda (the default) never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the cuda run is the gpu tests' job")
+    _, fa, bam = _write_inputs(tmp_path, "hifi")
+    monkeypatch.delenv("NPT_CNS_ENGINE", raising=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        torch_worker2.main(["-g", fa, "-l", bam, "-r", "hifi",
+                            "-o", str(tmp_path / "x.fa")])
+    assert not (tmp_path / "x.fa").exists()
