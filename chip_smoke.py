@@ -4,32 +4,40 @@
     python3 chip_smoke.py [--seed 1] [--contigs 8]
 
 Phases (any failed check exits non-zero; nothing is caught):
-  1. build   the level-scan kernel (nvcc, sm_90a) and the native host
-             library, both from the sources in this checkout, in parallel;
-  2. check   the kernel against its plain PyTorch version on the card,
-             byte for byte, for the ont/clr/rs/hifi rules: a batch of
-             eight 10-17 kb windows, and windows with E > 20, with Vb > 8
-             and with a 300-level insertion chain;
+  1. build   the level-scan kernels (nvcc, sm_90a: the chain and the
+             winners) and the native host library, both from the sources
+             in this checkout, in parallel; each kernel's registers,
+             shared memory and spills as ptxas reports them;
+  2. check   both kernels against their plain PyTorch versions on the
+             card, byte for byte (the chain's per-entry scores, then the
+             winners), for the ont/clr/rs/hifi rules: a batch of eight
+             10-17 kb windows, and windows with E > 20, with Vb > 8 and
+             with a 300-level insertion chain;
   3. main    worker2 -r ont --device cuda on a simulated bacterial-scale
              draft (--contigs x 600 kb, 30x ONT-like reads of 3-12 kb with
-             3% each of substitutions, insertions and deletions); the
-             kernel must have been launched, and the FASTA must be
+             3% each of substitutions, insertions and deletions); both
+             kernels must have been launched, and the FASTA must be
              byte-equal to the port's own run with NPT_CNS_ENGINE=native
              (the copied C++ host engine).  Each engine then polishes the
              first contig alone, for a per-stage breakdown (trace spans).
-             The main path's first launch group is re-run alone for the
-             kernel's full-size time; its shortest window is scanned whole
-             by the plain version, which must equal, byte for byte, both
-             the kernel on that window alone (every level's scores) and
+             The main path's first launch group is re-run alone for each
+             kernel's full-size time (ms per launch, us per level per
+             window) beside its bounds: bytes/operations, and for the
+             chain the latency bound (longest window's levels x one
+             dependent shared-memory load -> store step, measured here,
+             / the SM clock read during the run).  The group's shortest
+             window is scanned whole by the plain versions, which must
+             equal, byte for byte, both kernels on that window alone and
              the full-size launch (winners and score tail); and the group
-             cut to its first 4,096 levels per window times the kernel
-             beside the plain version on the same inputs.
+             cut to its first 4,096 levels per window times each kernel
+             beside its plain version on the same inputs.
 
 The number of contigs is the only cut: contig length, depth and error
 rates are fixed.
 
-The last three lines are the kernels' JSON record, the card's name and
-power limit, and {"ok": true, "device": {...}}.  The script imports
+The last three lines are the kernels' JSON record (both kernels, one
+port of the TPU kernel), the card's name and power limit, and
+{"ok": true, "device": {...}}.  The script imports
 nothing of JAX or of the JAX package, and exits non-zero without a result
 when no CUDA device is usable.
 """
@@ -39,6 +47,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -51,6 +60,11 @@ H100_INT_OPS_PER_S = 67e12  # non-tensor fp32 rate; int32 ALU work rated so
 CONTIG_LEN = 600_000  # bacterial scale: 8 x 600 kb = 4.8 Mb
 DEPTH = 30
 TRUNC_LEVELS = 4096  # levels per window of the kernel-vs-plain timing
+KERNELS = ("level_chain", "level_winners")
+TPU_KERNEL = "nextpolish_tpu/models/cns/pallas_scan.py:82"
+SOURCE = "nextpolish_tpu_torch/csrc/level_scan.cu"
+# worst kernel-vs-plain difference seen, per kernel, over every check
+ERR = dict.fromkeys(KERNELS, 0)
 
 RT_ERRORS = {  # (sub, ins, del) per read type of the kernel checks
     "ont": (0.03, 0.03, 0.03),
@@ -102,10 +116,28 @@ def build_all():
     info, secs = out["level_scan"]
     log(f"build: level_scan nvcc {info['seconds']:.1f} s "
         f"(wall {secs:.1f} s), native {out['native'][1]:.1f} s")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-    log('build: ' + json.dumps({"kernels": ["level_scan"]}))
+    for name, props in ptxas_by_kernel(info["ptxas"]).items():
+        log(f"  ptxas: {name}: {props}")
+    log(f"  level_chain dynamic shared memory {ls.chain_smem_bytes()} B "
+        "per block")
+    log('build: ' + json.dumps({"kernels": list(KERNELS)}))
+
+
+def ptxas_by_kernel(text: str) -> dict:
+    """ptxas -v output -> {kernel<template argument>: "Used N registers,
+    ...; N bytes stack frame, N bytes spill stores, ..."}."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(level_chain_kernel|level_winners_kernel|"
+                          r"smem_step_probe)(?:IL[bi](\d)E)?", m.group(1))
+            cur = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                   if k else m.group(1))
+            out[cur] = []
+        elif cur and ("spill" in line or "registers" in line):
+            out[cur].append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -139,32 +171,42 @@ def sim_windows(tmp, rt, seed, lengths, depth, errors, read_len,
     return dws
 
 
+def max_err(pairs) -> int:
+    return max((int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+               for a, b in pairs)
+
+
 def compare(dws, rt, dev, label):
-    """Kernel vs plain on the same device tensors; byte-equal or fail."""
+    """Both kernels vs their plain versions on the same device tensors:
+    the chain's per-entry results, then the winners; byte-equal or
+    fail."""
     import torch
 
+    from nextpolish_tpu_torch.models.cns import level_scan as ls
     from nextpolish_tpu_torch.models.cns.device_dp import (
         READ_TYPE_ID,
         pack_batch,
     )
     from nextpolish_tpu_torch.models.cns.dp import COV_COEF
-    from nextpolish_tpu_torch.models.cns.level_scan import (
-        level_scan,
-        level_scan_plain,
-    )
 
     b = pack_batch(dws).to(dev)
     rt_id, c = READ_TYPE_ID[rt], COV_COEF[rt]
-    kb, ks = level_scan(b, rt_id, c)
-    pb, ps = level_scan_plain(b, rt_id, c)
+    ki = ls.level_chain(b, rt_id, c)
+    kb, ks = ls.level_winners(b, ki, rt_id)
+    pi = ls.level_chain_plain(b, rt_id, c)
+    pb, ps = ls.level_winners_plain(b, pi, rt_id)
     torch.cuda.synchronize(dev)
-    err = max(int((kb.int() - pb.int()).abs().max()),
-              int((ks.long() - ps.long()).abs().max()))
+    e_chain = max_err([(ki, pi)])
+    e_win = max_err([(kb, pb), (ks, ps)])
+    ERR["level_chain"] = max(ERR["level_chain"], e_chain)
+    ERR["level_winners"] = max(ERR["level_winners"], e_win)
     log(f"check {rt:4s} {label}: B={len(dws)} E={[dw.E for dw in dws]} "
         f"Vb={[dw.Vb for dw in dws]} levels={b.meta.numel()} "
-        f"max_abs_err={err}")
-    check(err == 0 and torch.equal(kb, pb) and torch.equal(ks, ps),
-          f"kernel != plain for {rt} {label}")
+        f"max_abs_err chain {e_chain} winners {e_win}")
+    check(e_chain == 0 and torch.equal(ki, pi),
+          f"level_chain kernel != plain for {rt} {label}")
+    check(e_win == 0 and torch.equal(kb, pb) and torch.equal(ks, ps),
+          f"level_winners kernel != plain for {rt} {label}")
 
 
 def kernel_checks(tmp, dev, seed):
@@ -207,26 +249,42 @@ def truncate(dw, n):
         level_pos=dw.level_pos[:n], n_levels=n)
 
 
-def bound(batch):
-    """Least time for the launch's work on an H100: bytes moved (each
+def bounds(batch, rows):
+    """Least time of each kernel's work on an H100: bytes moved (each
     input read once, each output written once) over HBM bandwidth, and
-    int32 operations over the non-tensor rate.  Operations: per entry 10
-    for decode/weight/score plus 3 per set match bit (gather, compare,
-    max); per level, cell and slot of the window's E, 13 for the winner
-    loop and the carry update."""
+    int32 operations over the non-tensor rate; the larger bounds it.
+    `rows` is the chain's per-entry result rows (3 for ONT, else 2).
+    Chain: per entry 12 operations (decode, weight, score, two carry
+    writes) plus 3 per set match bit (gather, compare, max).  Winners: per
+    entry 13 (the rule walk), per level and cell 4 (start and stores).
+    Returns {kernel: (ms, "bytes" | "operations", bytes, ops)}."""
     import numpy as np
 
     ent_M = batch.ent_M.cpu().numpy().astype(np.uint32)
-    pop = np.unpackbits(ent_M.view(np.uint8)).sum()
-    win = batch.win_host.astype(np.int64)
+    pop = int(np.unpackbits(ent_M.view(np.uint8)).sum())
     Et, Lt = batch.ent_A.numel(), batch.meta.numel()
-    nbytes = (Et * 10 + (Lt + 1) * 4 + Lt * 4 + win.size * 4
-              + Lt * 6 + batch.n_sc_rows * 6 * 4)
-    ops = Et * 10 + 3 * int(pop) + int((win[:, 1] * 6 * win[:, 2]).sum()) * 13
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_INT_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, ops
+    lvl = (Lt + 1) * 4 + Lt * 4 + batch.win_host.size * 4
+    work = {
+        "level_chain": (Et * 10 + lvl + rows * Et * 4, Et * 12 + 3 * pop),
+        "level_winners": (Et * 6 + rows * Et * 4 + lvl + Lt * 6
+                          + batch.n_sc_rows * 6 * 4, Et * 13 + Lt * 6 * 4),
+    }
+    out = {}
+    for k, (nbytes, ops) in work.items():
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_INT_OPS_PER_S * 1e3
+        out[k] = (max(t_bytes, t_ops),
+                  "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+    return out
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock now, as nvidia-smi reads it."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    check(r.returncode == 0, f"nvidia-smi failed: {r.stderr}")
+    return float(r.stdout.strip().splitlines()[0])
 
 
 def time_ms(fn, dev, reps):
@@ -251,11 +309,8 @@ def main_path(tmp, dev, args):
         READ_TYPE_ID,
         pack_batch,
     )
+    from nextpolish_tpu_torch.models.cns import level_scan as ls
     from nextpolish_tpu_torch.models.cns.dp import COV_COEF
-    from nextpolish_tpu_torch.models.cns.level_scan import (
-        level_scan,
-        level_scan_plain,
-    )
     from nextpolish_tpu_torch.runtime import trace
 
     t0 = time.perf_counter()
@@ -280,19 +335,20 @@ def main_path(tmp, dev, args):
     os.environ.pop("NPT_CNS_ENGINE", None)
     trace.reset()
     torch.cuda.reset_peak_memory_stats(dev)
-    level_scan.launches = 0
+    ls.level_chain.launches = 0
+    ls.level_winners.launches = 0
     t0 = time.perf_counter()
     rc = worker2.main(["-g", fa, "-l", bam, "-r", "ont", "-o", out_dev,
                        "--device", "cuda"])
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    launches = level_scan.launches
+    launches = {k: getattr(ls, k).launches for k in KERNELS}
     snap = trace.snapshot("cns")
     peak = torch.cuda.max_memory_allocated(dev)
     batcher_mod.dispatch_group = dispatch
     check(rc == 0, f"worker2 --device cuda returned {rc}")
-    check(launches > 0, "the main path launched the level-scan kernel "
-          "no time")
+    for k in KERNELS:
+        check(launches[k] > 0, f"the main path launched {k} no time")
 
     def got(key):
         return snap.get(key, {}).get("s", 0)
@@ -304,7 +360,7 @@ def main_path(tmp, dev, args):
         f"windows to the kernel {int(got('cns.windows'))}, windows densify "
         f"refused {int(got('cns.windows_host'))}, levels "
         f"{int(got('cns.levels'))}")
-    log(f"main: kernel time (summed CUDA events) "
+    log(f"main: kernel time (summed CUDA events, both kernels) "
         f"{got('cns.kernel') * 1e3:.1f} ms, host prep (cns.host) "
         f"{got('cns.host'):.2f} s, waits on the DP (cns.dp) "
         f"{got('cns.dp'):.2f} s, max_memory_allocated {peak} B")
@@ -355,65 +411,110 @@ def main_path(tmp, dev, args):
     check(open(outs[0], "rb").read() == open(outs[1], "rb").read(),
           "one-contig device and native FASTA differ")
 
-    # ---- the kernel at the main path's shapes ----------------------------
+    # ---- the kernels at the main path's shapes ---------------------------
     check(groups, "no launch group recorded")
     dws = groups[0]
     rt_id, c = READ_TYPE_ID["ont"], COV_COEF["ont"]
+    rows = ls.inter_rows(rt_id)
     full = pack_batch(dws, sc_tail=True).to(dev)
-    res = {}
-    full_ms = time_ms(
-        lambda: res.update(full=level_scan(full, rt_id, c)), dev, 1)
     lv = full.meta.numel()
-    fb_ms, fb_by, _, _ = bound(full)
-    log(f"main: kernel on the main path's first group (B={len(dws)}, "
-        f"E={[dw.E for dw in dws]}, Vb={[dw.Vb for dw in dws]}, "
-        f"{lv} levels, longest window "
-        f"{max(dw.n_levels for dw in dws)}): {full_ms:.1f} ms per launch, "
-        f"{full_ms * 1e3 * len(dws) / lv:.3f} us per level per block; "
-        f"bound {fb_ms:.4f} ms ({fb_by})")
-    # the group's shortest window, whole, against the plain version
+    longest = max(dw.n_levels for dw in dws)
+    res = {}
+    ls.level_chain(full, rt_id, c)  # warm-up
+    # three chains in flight while nvidia-smi reads the SM clock
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(3):
+        res["inter"] = ls.level_chain(full, rt_id, c)
+    t1.record()
+    mhz = sm_clock_mhz()
+    torch.cuda.synchronize(dev)
+    full_ms = {"level_chain": t0.elapsed_time(t1) / 3}
+    full_ms["level_winners"] = time_ms(
+        lambda: res.update(full=ls.level_winners(full, res["inter"], rt_id)),
+        dev, 3)
+    step = ls.smem_step_cycles(dev)
+    chain_bound_ms = longest * step / (mhz * 1e6) * 1e3
+    fb = bounds(full, rows)
+    log(f"main: the main path's first group (B={len(dws)}, "
+        f"E={[dw.E for dw in dws]}, Vb={[dw.Vb for dw in dws]}, {lv} "
+        f"levels, longest window {longest}, {full.ent_A.numel()} entries); "
+        f"SM clock {mhz:.0f} MHz during the chain, one dependent "
+        f"shared-memory load -> store step {step} cycles")
+    for k in KERNELS:
+        log(f"main: {k}: {full_ms[k]:.3f} ms per launch, "
+            f"{full_ms[k] * 1e3 * len(dws) / lv:.4f} us per level per "
+            f"window, {full_ms[k] * 1e3 / longest:.4f} us per level of the "
+            f"longest window; bound {fb[k][0]:.4f} ms ({fb[k][1]})"
+            + (f", chain bound {chain_bound_ms:.3f} ms ({longest} levels x "
+               f"{step} cycles / {mhz:.0f} MHz)" if k == "level_chain"
+               else ""))
+
+    # the group's shortest window, whole, against the plain versions
     i = min(range(len(dws)), key=lambda j: dws[j].n_levels)
     one = pack_batch([dws[i]]).to(dev)  # every level's scores kept
-    kb1, ks1 = level_scan(one, rt_id, c)
+    ki1 = ls.level_chain(one, rt_id, c)
+    kb1, ks1 = ls.level_winners(one, ki1, rt_id)
     t0 = time.perf_counter()
-    pb1, ps1 = level_scan_plain(one, rt_id, c)
+    pi1 = ls.level_chain_plain(one, rt_id, c)
+    pb1, ps1 = ls.level_winners_plain(one, pi1, rt_id)
     torch.cuda.synchronize(dev)
     whole_plain_s = time.perf_counter() - t0
-    fb, fs = res["full"]
+    fb_, fs = res["full"]
     lb, nl, _, _, sc_from, sc_base = (int(x) for x in full.win_host[i, :6])
-    pairs = [(kb1, pb1), (ks1, ps1), (fb[lb:lb + nl], pb1),
-             (fs[sc_base:sc_base + nl - sc_from], ps1[sc_from:])]
-    whole_err = max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
+    win_pairs = [(kb1, pb1), (ks1, ps1), (fb_[lb:lb + nl], pb1),
+                 (fs[sc_base:sc_base + nl - sc_from], ps1[sc_from:])]
+    e_chain, e_win = max_err([(ki1, pi1)]), max_err(win_pairs)
     log(f"main: window {i} of that group whole ({nl} levels, E={dws[i].E}, "
-        f"Vb={dws[i].Vb}): plain {whole_plain_s:.1f} s; kernel alone and "
-        f"the full-size launch vs plain: max_abs_err {whole_err}")
-    check(whole_err == 0 and all(torch.equal(a, b) for a, b in pairs),
-          "kernel != plain on a whole main-path window")
-    del one, kb1, ks1, pb1, ps1, pairs
+        f"Vb={dws[i].Vb}): plain {whole_plain_s:.1f} s; kernels alone and "
+        f"the full-size launch vs plain: max_abs_err chain {e_chain}, "
+        f"winners {e_win}")
+    check(e_chain == 0 and torch.equal(ki1, pi1),
+          "level_chain kernel != plain on a whole main-path window")
+    check(e_win == 0 and all(torch.equal(a, b) for a, b in win_pairs),
+          "level_winners kernel != plain on a whole main-path window")
+    ERR["level_chain"] = max(ERR["level_chain"], e_chain)
+    ERR["level_winners"] = max(ERR["level_winners"], e_win)
+    del one, ki1, kb1, ks1, pi1, pb1, ps1, win_pairs
 
+    # the group cut to its first TRUNC_LEVELS levels: kernels vs plain
     trunc = pack_batch([truncate(dw, TRUNC_LEVELS) for dw in dws]).to(dev)
-    level_scan(trunc, rt_id, c)  # warm-up
-    ms = time_ms(lambda: level_scan(trunc, rt_id, c), dev, 3)
-    plain_ms = time_ms(
-        lambda: res.update(p=level_scan_plain(trunc, rt_id, c)), dev, 1)
-    kb, ks = level_scan(trunc, rt_id, c)
-    pb, ps = res["p"]
+    ki = ls.level_chain(trunc, rt_id, c)  # warm-up
+    ls.level_winners(trunc, ki, rt_id)
+    ms = {"level_chain": time_ms(lambda: ls.level_chain(trunc, rt_id, c),
+                                 dev, 3),
+          "level_winners": time_ms(lambda: ls.level_winners(trunc, ki, rt_id),
+                                   dev, 3)}
+    plain_ms = {
+        "level_chain": time_ms(lambda: res.update(
+            pi=ls.level_chain_plain(trunc, rt_id, c)), dev, 1),
+        "level_winners": time_ms(lambda: res.update(
+            pw=ls.level_winners_plain(trunc, res["pi"], rt_id)), dev, 1)}
+    kb, ks = ls.level_winners(trunc, ki, rt_id)
     torch.cuda.synchronize(dev)
-    err = max(int((kb.int() - pb.int()).abs().max()),
-              int((ks.long() - ps.long()).abs().max()))
-    check(err == 0, "kernel != plain on the main path's windows")
-    b_ms, b_by, nbytes, ops = bound(trunc)
-    log(f"main: first {TRUNC_LEVELS} levels of each window "
-        f"({trunc.meta.numel()} levels): kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms, bound {b_ms:.5f} ms ({b_by}: {nbytes} B, "
-        f"{ops} ops), max_abs_err {err}")
-    err = max(err, whole_err)
-    return dict(name="level_scan", route="cuda",
-                source="nextpolish_tpu_torch/csrc/level_scan.cu",
-                replaces="nextpolish_tpu/models/cns/pallas_scan.py:82",
-                launches=launches, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    e_chain = max_err([(ki, res["pi"])])
+    e_win = max_err([(kb, res["pw"][0]), (ks, res["pw"][1])])
+    check(e_chain == 0 and e_win == 0,
+          "kernels != plain on the main path's windows")
+    tb = bounds(trunc, rows)
+    for k in KERNELS:
+        log(f"main: first {TRUNC_LEVELS} levels of each window "
+            f"({trunc.meta.numel()} levels): {k} {ms[k]:.3f} ms, plain "
+            f"{plain_ms[k]:.1f} ms, bound {tb[k][0]:.5f} ms ({tb[k][1]}: "
+            f"{tb[k][2]} B, {tb[k][3]} ops)")
+    recs = []
+    for k in KERNELS:
+        rec = dict(name=k, route="cuda", source=SOURCE, replaces=TPU_KERNEL,
+                   launches=launches[k], max_abs_err=ERR[k], ms=ms[k],
+                   plain_ms=plain_ms[k], bound_ms=tb[k][0],
+                   bound_by=tb[k][1], library_ms=None,
+                   full_group_ms=full_ms[k],
+                   full_group_bound_ms=fb[k][0])
+        if k == "level_chain":
+            rec["full_group_chain_bound_ms"] = chain_bound_ms
+        recs.append(rec)
+    return recs
 
 
 def main(argv=None) -> int:
@@ -443,14 +544,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         kernel_checks(tmp, dev, args.seed)
         log(f"check: all byte-equal ({time.perf_counter() - t0:.1f} s)")
-        rec = main_path(tmp, dev, args)
+        recs = main_path(tmp, dev, args)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [rec]}))
+    print(json.dumps({"kernels": recs}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,9 @@ is held byte-equal to it by the ``tests/test_torch_*.py`` suite.  It imports
 that both packages need is kept here as its own copy.
 
 Slice 1 covers long-read consensus (``worker2``, tasks 5/6).  Its device
-hot loop, the engine-2 level scan, is a hand-written CUDA kernel
-(``csrc/level_scan.cu``) beside a plain PyTorch version
-(``models/cns/level_scan.py``).  Entry points run on ``cuda`` unless the
+hot loop, the engine-2 level scan, is two hand-written CUDA kernels, the
+chain and the winners (``csrc/level_scan.cu``), beside their plain
+PyTorch versions (``models/cns/level_scan.py``).  Entry points run on ``cuda`` unless the
 caller asks for ``cpu`` (``device.resolve_device``).
 """
 

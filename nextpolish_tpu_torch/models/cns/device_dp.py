@@ -5,8 +5,8 @@ Reformulation (as in the JAX package): the sparse (t_pos, delta, q_base)
 lattice becomes a flat sequence of *levels* (one level per occupied
 (t_pos, delta) pair, in DP order); every level holds exactly the 6 base
 cells, each with up to E entry slots in reference insertion order.  The
-level scan (level_scan.py: a hand-written CUDA kernel on the card, plain
-PyTorch on the CPU) walks the levels:
+level scan (level_scan.py: two hand-written CUDA kernels on the card, the
+chain and the winners; plain PyTorch on the CPU) walks the levels:
 
   - within a position, level d's predecessors live in level d-1 (carried
     as `prev`), because a read's insertion run increments delta by exactly
@@ -252,6 +252,32 @@ def tail_start(dw: DenseWindow) -> int:
     return int(np.searchsorted(lp, lp[-1]))
 
 
+def _check_stream(dw: DenseWindow) -> None:
+    """What the level-scan kernels rely on: entries in (level, cell, slot)
+    order (the winners walk a cell's slots in insertion order), so at most
+    6*E a level; match bits and pred rows inside the window's E and Vb."""
+    if dw.E > MAX_E or dw.Vb > MAX_VB:
+        raise ValueError(f"window E={dw.E} Vb={dw.Vb} over the caps")
+    if not len(dw.ent_A):
+        return
+    b = dw.ent_b.astype(np.int64)
+    s = dw.ent_slot.astype(np.int64)
+    if (dw.ent_lvl[0] < 0 or dw.ent_lvl[-1] >= dw.n_levels or b.min() < 0
+            or b.max() > 5 or s.min() < 0 or s.max() >= dw.E):
+        raise ValueError("DenseWindow entry level / cell / slot out of "
+                         "range")
+    key = (dw.ent_lvl * 6 + b) * MAX_E + s
+    if np.any(key[1:] <= key[:-1]):
+        raise ValueError("DenseWindow entries are not in (level, cell, "
+                         "slot) order")
+    if np.any(dw.ent_M.view(np.uint32) >> np.uint32(dw.E)):
+        raise ValueError("DenseWindow match bit at or past E")
+    if np.any(((dw.ent_A >> 8) & 0xFF) >= (dw.Vb + 1) * 6):
+        raise ValueError("DenseWindow pp_idx past the window's carry rows")
+    if np.any(((dw.meta >> 2) & 0x3F) > dw.Vb):
+        raise ValueError("DenseWindow ring slot at or past Vb")
+
+
 def pack_batch(dws, sc_tail: bool = False, pin: bool = False) -> ScanBatch:
     """Pack windows into the level scan's launch form (CPU tensors, in
     pinned memory when `pin`).  With sc_tail, each window's scores are
@@ -283,11 +309,8 @@ def pack_batch(dws, sc_tail: bool = False, pin: bool = False) -> ScanBatch:
     win = win.reshape(B, WIN_FIELDS)
     win[:] = 0
     for i, dw in enumerate(dws):
-        if dw.E > MAX_E or dw.Vb > MAX_VB:
-            raise ValueError(f"window E={dw.E} Vb={dw.Vb} over the caps")
+        _check_stream(dw)
         n, lo, lb = int(Ets[i]), int(ent_base[i]), int(lvl_base[i])
-        if np.any(dw.ent_lvl[1:] < dw.ent_lvl[:-1]):
-            raise ValueError("DenseWindow entries are not level-major")
         A[lo:lo + n] = dw.ent_A
         M[lo:lo + n] = dw.ent_M
         b[lo:lo + n] = dw.ent_b

@@ -1,9 +1,17 @@
-"""Engine-2 level scan: the wrapper of the hand-written CUDA kernel
-(csrc/level_scan.cu) and its plain PyTorch version.
+"""Engine-2 level scan: the wrappers of the two hand-written CUDA kernels
+(csrc/level_scan.cu) and their plain PyTorch versions.
 
 Port of nextpolish_tpu/models/cns/pallas_scan.py (the TPU kernel
-`_kernel` and its launch glue `get_level_scan`); the plain version follows
+`_kernel` and its launch glue `get_level_scan`); the plain versions follow
 the lax.scan twin, nextpolish_tpu/models/cns/device_dp.py::_dp_level.
+
+The scan runs in two halves:
+  level_chain    the sequential DP over each window's levels (one chain
+                 per window): per entry its score sc, n_best and, for ONT,
+                 n_last, int32 [3 or 2, Et] in entry-stream order;
+  level_winners  the read-type rules, independent per level: the winning
+                 slot and its score per (level, cell).
+level_scan runs both.
 
 Launch form (ScanBatch), built by device_dp.pack_batch from B windows:
   ent_A    int32 [Et]  (link << 16) | (pp_idx << 8) | flags, level-major
@@ -13,18 +21,19 @@ Launch form (ScanBatch), built by device_dp.pack_batch from B windows:
   lvl_off  int32 [Lt+1] first entry of every level (all windows, in order)
   meta     int32 [Lt]  (cov << 8) | ((vslot + 1) << 2) | (is_d0 << 1)
   win      int32 [B, 8] (lvl_base, n_levels, E, Vb, sc_from, sc_base, 0, 0)
-Each window keeps its own E and Vb, so pp_idx needs no re-basing: an index
-at or past Vb*6 names the previous level, any other a ring row.  Slot and
-cell are separate fields, so every E <= MAX_E runs (the TPU's 20-slot cap
-came from packing both into one 7-bit byte).
+Within a level, entries are in (cell, slot) order.  Each window keeps its
+own E and Vb, so pp_idx needs no re-basing: an index at or past Vb*6 names
+the previous level, any other a ring row.  Slot and cell are separate
+fields, so every E <= MAX_E runs (the TPU's 20-slot cap came from packing
+both into one 7-bit byte).
 
 Outputs: best int8 [Lt, 6] (winning slot per level and cell) and sc int32
 [n_sc_rows, 6], the winners' scores of each window's levels from sc_from
 on (row sc_base + l - sc_from of the window's level l).
 
-`level_scan` runs the kernel on CUDA tensors and the plain version on CPU
-tensors, nothing else: on a card the kernel runs or the call raises.
-Both refuse a negative link (a device-side assert on the card).
+Each wrapper runs its kernel on CUDA tensors and its plain version on CPU
+tensors, nothing else: on a card the kernel runs or the call raises.  The
+winners refuse a negative link (a device-side assert on the card).
 """
 from __future__ import annotations
 
@@ -139,17 +148,66 @@ def _load():
         lib = ctypes.CDLL(build()["path"])
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.npt_level_scan.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p, p]
-        lib.npt_level_scan.restype = ctypes.c_int
-        lib.npt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.npt_level_chain.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p,
+                                        p, p]
+        lib.npt_level_chain.restype = i
+        lib.npt_level_winners.argtypes = [p, p, p, p, p, p, i, i, i, p, p,
+                                          p, p, p, p]
+        lib.npt_level_winners.restype = i
+        lib.npt_level_chain_smem_bytes.argtypes = []
+        lib.npt_level_chain_smem_bytes.restype = i
+        lib.npt_smem_step_cycles.argtypes = [i, p, p]
+        lib.npt_smem_step_cycles.restype = i
+        lib.npt_cuda_error_string.argtypes = [i]
         lib.npt_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.npt_cuda_error_string(rc).decode())
+
+
+def chain_smem_bytes() -> int:
+    """Dynamic shared memory of one level_chain block (bytes)."""
+    return int(_load().npt_level_chain_smem_bytes())
+
+
+def smem_step_cycles(device, steps: int = 1 << 16) -> int:
+    """SM cycles of one dependent shared-memory load -> store step (with
+    a __syncwarp), measured on the card by a one-warp probe: the floor of
+    one level of the chain.  A measurement, not part of the scan."""
+    dev = torch.device(device)
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.npt_smem_step_cycles(
+            steps, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, rc, "smem_step_probe")
+    return int(out[0])
+
+
 # ---------------------------------------------------------------------------
-# wrapper
+# wrappers
 # ---------------------------------------------------------------------------
+
+def inter_rows(rt_id: int) -> int:
+    """Rows of the chain's per-entry result: sc, n_best, and n_last, which
+    only the ONT rules read."""
+    return 3 if rt_id == 0 else 2
+
+
+def _device_of(batch: ScanBatch) -> torch.device:
+    devs = {t.device for t in batch.tensors()}
+    if len(devs) != 1:
+        raise ValueError(f"batch tensors span devices {devs}")
+    (dev,) = devs
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"the level scan runs on cuda or cpu, not {dev}")
+    return dev
+
 
 def _check(batch: ScanBatch, device: torch.device) -> None:
     want = (torch.int32, torch.int32, torch.int8, torch.int8, torch.int32,
@@ -174,22 +232,58 @@ def _check(batch: ScanBatch, device: torch.device) -> None:
         raise ValueError("window E / Vb outside 1..24")
 
 
-def level_scan(batch: ScanBatch, rt_id: int, cov_coef: int):
-    """Scan every window of `batch`; returns (best int8 [Lt, 6],
-    sc int32 [n_sc_rows, 6]) on the batch's device.  CUDA tensors go to
-    the kernel (which runs or raises), CPU tensors to level_scan_plain.
-    `level_scan.launches` counts kernel launches."""
-    devs = {t.device for t in batch.tensors()}
-    if len(devs) != 1:
-        raise ValueError(f"batch tensors span devices {devs}")
-    (dev,) = devs
+def _check_inter(batch: ScanBatch, inter: torch.Tensor, rt_id: int) -> None:
+    want = (inter_rows(rt_id), batch.ent_A.numel())
+    if inter.device != batch.ent_A.device or inter.dtype != torch.int32:
+        raise TypeError(f"inter is {inter.dtype} on {inter.device}")
+    if tuple(inter.shape) != want or not inter.is_contiguous():
+        raise ValueError(f"inter has shape {tuple(inter.shape)}, expected "
+                         f"{want} contiguous")
+
+
+def level_chain(batch: ScanBatch, rt_id: int, cov_coef: int) -> torch.Tensor:
+    """The chain half: per entry sc, n_best (and n_last for ONT), int32
+    [inter_rows(rt_id), Et] on the batch's device.  CUDA tensors go to
+    level_chain_kernel (which runs or raises), CPU tensors to
+    level_chain_plain.  `level_chain.launches` counts kernel launches."""
+    dev = _device_of(batch)
     if dev.type == "cpu":
-        return level_scan_plain(batch, rt_id, cov_coef)
-    if dev.type != "cuda":
-        raise ValueError(f"level_scan runs on cuda or cpu, not {dev}")
+        return level_chain_plain(batch, rt_id, cov_coef)
     _check(batch, dev)
     if rt_id not in (0, 1, 2, 3):
         raise ValueError(f"rt_id {rt_id}")
+    Et = batch.ent_A.numel()
+    inter = torch.empty((inter_rows(rt_id), Et), dtype=torch.int32,
+                        device=dev)
+    B = len(batch.win_host)
+    if B == 0 or batch.meta.numel() == 0:
+        return inter
+    lib = _load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nl = inter[2].data_ptr() if rt_id == 0 else 0
+    with torch.cuda.device(dev):
+        rc = lib.npt_level_chain(
+            *(t.data_ptr() for t in batch.tensors()), B, int(rt_id == 0),
+            cov_coef, inter[0].data_ptr(), inter[1].data_ptr(), nl, stream)
+    _raise_on(lib, rc, "level_chain kernel")
+    with _COUNT_LOCK:  # launches come from several producer threads
+        level_chain.launches += 1
+    return inter
+
+
+def level_winners(batch: ScanBatch, inter: torch.Tensor, rt_id: int):
+    """The winners half: (best int8 [Lt, 6], sc int32 [n_sc_rows, 6]) from
+    the chain's per-entry results, on the batch's device.  CUDA tensors go
+    to level_winners_kernel (which runs or raises), CPU tensors to
+    level_winners_plain.  `level_winners.launches` counts kernel
+    launches."""
+    dev = _device_of(batch)
+    if dev.type == "cpu":
+        return level_winners_plain(batch, inter, rt_id)
+    _check(batch, dev)
+    if rt_id not in (0, 1, 2, 3):
+        raise ValueError(f"rt_id {rt_id}")
+    _check_inter(batch, inter, rt_id)
     Lt = batch.meta.numel()
     best = torch.empty((Lt, 6), dtype=torch.int8, device=dev)
     sc = torch.empty((batch.n_sc_rows, 6), dtype=torch.int32, device=dev)
@@ -203,54 +297,73 @@ def level_scan(batch: ScanBatch, rt_id: int, cov_coef: int):
                             "negative link in ent_A")
     lib = _load()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    nl = inter[2].data_ptr() if rt_id == 0 else 0
+    t = batch.tensors()
     with torch.cuda.device(dev):
-        rc = lib.npt_level_scan(
-            *(t.data_ptr() for t in batch.tensors()), B, rt_id, cov_coef,
-            best.data_ptr(), sc.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("level_scan kernel launch failed: "
-                           + lib.npt_cuda_error_string(rc).decode())
-    with _COUNT_LOCK:  # launches come from several producer threads
-        level_scan.launches += 1
+        rc = lib.npt_level_winners(
+            t[0].data_ptr(), t[2].data_ptr(), t[3].data_ptr(),
+            t[4].data_ptr(), t[5].data_ptr(), t[6].data_ptr(), B,
+            int(batch.win_host[:, 1].max()), rt_id, inter[0].data_ptr(),
+            inter[1].data_ptr(), nl, best.data_ptr(), sc.data_ptr(), stream)
+    _raise_on(lib, rc, "level_winners kernel")
+    with _COUNT_LOCK:
+        level_winners.launches += 1
     return best, sc
 
 
-level_scan.launches = 0
+level_chain.launches = 0
+level_winners.launches = 0
 _COUNT_LOCK = threading.Lock()
 
 
+def level_scan(batch: ScanBatch, rt_id: int, cov_coef: int):
+    """Scan every window of `batch`: the chain, then the winners; returns
+    (best int8 [Lt, 6], sc int32 [n_sc_rows, 6]) on the batch's device.
+    On a card that is one launch of each kernel, on the CPU their plain
+    versions."""
+    return level_winners(batch, level_chain(batch, rt_id, cov_coef), rt_id)
+
+
 # ---------------------------------------------------------------------------
-# plain PyTorch version
+# plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def level_scan_plain(batch: ScanBatch, rt_id: int, cov_coef: int):
-    """The same scan as the kernel in plain PyTorch ops, on any device.
+@dataclass
+class _Slabs:
+    """A batch as dense level-major slabs [L, B, 6, E] (L the longest
+    window, E and Vb the widest); `flat` is each entry's index into a
+    flattened slab."""
 
-    A Python loop over levels carries (prev [B, 6, E], ring [B, Vb*6, E])
-    exactly as device_dp._dp_level does, vectorised over the B windows
-    (windows past their last level are padding and leave the carry
-    alone).  The winning-entry rules read nothing of the carry, so they run
-    once after the loop over all levels at once; they still walk the E
-    slots in insertion order."""
-    if batch.ent_A.numel() and int(batch.ent_A.min()) < 0:
-        raise ValueError("negative link in ent_A: C's division of the ONT "
-                         "rules would differ from floor division")
+    B: int
+    L: int
+    E: int
+    Vb: int
+    win: np.ndarray
+    flat: torch.Tensor
+    A: torch.Tensor
+    M: torch.Tensor
+    meta: torch.Tensor  # [L, B], pad levels carry the pad bit
+
+    def scatter(self, vals: torch.Tensor, fill: int) -> torch.Tensor:
+        return _scatter(self.flat, vals, fill, (self.L, self.B, 6, self.E))
+
+
+def _scatter(flat, vals, fill, shape):
+    out = torch.full((int(np.prod(shape)),), fill, dtype=vals.dtype,
+                     device=vals.device)
+    out[flat] = vals
+    return out.view(shape)
+
+
+def _slabs(batch: ScanBatch) -> _Slabs:
     dev = batch.meta.device
     win = batch.win_host.astype(np.int64)
     B = len(win)
     Lt_all = batch.meta.numel()
-    best_out = torch.zeros((Lt_all, 6), dtype=torch.int8, device=dev)
-    sc_out = torch.zeros((batch.n_sc_rows, 6), dtype=torch.int32,
-                         device=dev)
-    if B == 0 or Lt_all == 0:
-        return best_out, sc_out
     Lts = win[:, 1]
     E = int(win[:, 2].max())
     Vb = int(win[:, 3].max())
     L = int(Lts.max())
-    i32 = torch.int32
-
-    # ---- dense level-major slabs [L, B, 6, E] -------------------------
     counts = (batch.lvl_off[1:] - batch.lvl_off[:-1]).long()
     g_of_ent = torch.repeat_interleave(
         torch.arange(Lt_all, device=dev), counts)
@@ -261,16 +374,33 @@ def level_scan_plain(batch: ScanBatch, rt_id: int, cov_coef: int):
     w_e = w_of_lvl[g_of_ent]
     flat = (((loc_of_lvl[g_of_ent] * B + w_e) * 6
              + batch.ent_b.long()) * E + batch.ent_slot.long())
-    A = torch.zeros(L * B * 6 * E, dtype=i32, device=dev)
-    M = torch.zeros(L * B * 6 * E, dtype=i32, device=dev)
-    A[flat] = batch.ent_A
-    M[flat] = batch.ent_M
-    A = A.view(L, B, 6, E)
-    M = M.view(L, B, 6, E)
-    meta = torch.ones(L * B, dtype=i32, device=dev)  # pad bit set
+    shape = (L, B, 6, E)
+    meta = torch.ones(L * B, dtype=torch.int32, device=dev)  # pad bit set
     meta[loc_of_lvl * B + w_of_lvl] = batch.meta
-    meta = meta.view(L, B)
+    return _Slabs(B, L, E, Vb, win, flat,
+                  _scatter(flat, batch.ent_A, 0, shape),
+                  _scatter(flat, batch.ent_M, 0, shape), meta.view(L, B))
 
+
+def level_chain_plain(batch: ScanBatch, rt_id: int, cov_coef: int
+                      ) -> torch.Tensor:
+    """The chain half in plain PyTorch ops, on any device: int32
+    [inter_rows(rt_id), Et] (sc, n_best, n_last for ONT) in entry-stream
+    order.
+
+    A Python loop over levels carries (prev [B, 6, E], ring [B, Vb*6, E])
+    exactly as device_dp._dp_level does, vectorised over the B windows
+    (windows past their last level are padding and leave the carry
+    alone)."""
+    dev = batch.meta.device
+    rows = inter_rows(rt_id)
+    if len(batch.win_host) == 0 or batch.meta.numel() == 0:
+        return torch.zeros((rows, batch.ent_A.numel()), dtype=torch.int32,
+                           device=dev)
+    s = _slabs(batch)
+    B, L, E, Vb = s.B, s.L, s.E, s.Vb
+    i32 = torch.int32
+    A, M, meta = s.A, s.M, s.meta
     link = A >> 16
     flags = A & 0xFF
     valid = (flags & F_VALID) != 0
@@ -281,7 +411,7 @@ def level_scan_plain(batch: ScanBatch, rt_id: int, cov_coef: int):
     # widest window: same-position indices (>= the window's own Vb*6) move
     # past the ring
     pp = (A >> 8) & 0xFF
-    vb6 = torch.as_tensor(win[:, 3] * 6, device=dev).view(1, B, 1, 1)
+    vb6 = torch.as_tensor(s.win[:, 3] * 6, device=dev).view(1, B, 1, 1)
     pp = torch.where(pp >= vb6, pp - vb6 + Vb * 6, pp).long()
     vslot = ((meta >> 2) & 0x3F) - 1
     is_d0 = ((meta >> 1) & 1) != 0
@@ -294,16 +424,15 @@ def level_scan_plain(batch: ScanBatch, rt_id: int, cov_coef: int):
     # what a level does to the carry rows [Vb ring slots | prev]: its
     # scores go to its own ring slot and to prev; a d0 level resets the
     # rest of the ring to NEG; pad levels leave everything untouched
-    rows = torch.arange(Vb + 1, device=dev)
+    rws = torch.arange(Vb + 1, device=dev)
     live = ~is_pad[:, :, None]
-    take = live & (((rows == vslot[:, :, None]) & (rows < Vb))
-                   | (rows == Vb))
-    clear = live & is_d0[:, :, None] & (rows < Vb)
+    take = live & (((rws == vslot[:, :, None]) & (rws < Vb))
+                   | (rws == Vb))
+    clear = live & is_d0[:, :, None] & (rws < Vb)
     # a score without a usable match: w at a head, 0, or NEG when invalid
     scored = valid & ~is_head
     sc_else = torch.where(valid, torch.where(is_head, w, 0), NEG).to(i32)
 
-    # ---- sequential scan over levels -----------------------------------
     carry = torch.full((B, Vb + 1, 6, E), NEG, dtype=i32, device=dev)
     sc_h = torch.empty((L, B, 6, E), dtype=i32, device=dev)
     nb_h = torch.empty((L, B, 6, E), dtype=i32, device=dev)
@@ -326,8 +455,34 @@ def level_scan_plain(batch: ScanBatch, rt_id: int, cov_coef: int):
             carry = torch.where(
                 take[lv][:, :, None, None], sc[:, None],
                 torch.where(clear[lv][:, :, None, None], neg, carry))
+    out = [sc_h, nb_h, nl_h][:rows]
+    return torch.stack([h.view(-1)[s.flat] for h in out])
 
-    # ---- winning-entry selection, all levels at once --------------------
+
+def level_winners_plain(batch: ScanBatch, inter: torch.Tensor, rt_id: int):
+    """The winners half in plain PyTorch ops, on any device, over all
+    levels at once: the read-type rules still walk the E slots in
+    insertion order.  An empty slot scores NEG (with link 0)."""
+    if batch.ent_A.numel() and int(batch.ent_A.min()) < 0:
+        raise ValueError("negative link in ent_A: C's division of the ONT "
+                         "rules would differ from floor division")
+    dev = batch.meta.device
+    Lt_all = batch.meta.numel()
+    best_out = torch.zeros((Lt_all, 6), dtype=torch.int8, device=dev)
+    sc_out = torch.zeros((batch.n_sc_rows, 6), dtype=torch.int32,
+                         device=dev)
+    if len(batch.win_host) == 0 or Lt_all == 0:
+        return best_out, sc_out
+    s = _slabs(batch)
+    B, L, E = s.B, s.L, s.E
+    i32 = torch.int32
+    sc_h = s.scatter(inter[0], NEG)
+    nb_h = s.scatter(inter[1], NEG)
+    nl_h = s.scatter(inter[2], 0) if rt_id == 0 else None
+    link = s.A >> 16
+    flags = s.A & 0xFF
+    valid = (flags & F_VALID) != 0
+    is_head = (flags & F_HEAD) != 0
     cond1a = (flags & F_COND1A) != 0
     cond2b = (flags & F_COND2B) != 0
     ppb_ng = (flags & F_PPB_NOT_GAP) != 0
@@ -339,7 +494,7 @@ def level_scan_plain(batch: ScanBatch, rt_id: int, cov_coef: int):
     raiser = torch.full((L, B, 6), NEGINIT, dtype=i32, device=dev)
     if rt_id == 0:  # ont: tmp = max link over valid entries
         tmp = torch.where(valid, link, 0).amax(dim=-1)
-        cov3 = cov[:, :, None]
+        cov3 = (s.meta >> 8)[:, :, None]
     for e in range(E):
         v = valid[..., e]
         hm = hm_all[..., e]
@@ -378,8 +533,15 @@ def level_scan_plain(batch: ScanBatch, rt_id: int, cov_coef: int):
         p_pp = torch.where(upd, raiser, p_pp)
 
     for b in range(B):
-        lb, n, sc_from, sc_base = (int(win[b, 0]), int(win[b, 1]),
-                                   int(win[b, 4]), int(win[b, 5]))
+        lb, n, sc_from, sc_base = (int(s.win[b, 0]), int(s.win[b, 1]),
+                                   int(s.win[b, 4]), int(s.win[b, 5]))
         best_out[lb:lb + n] = bm[:n, b].to(torch.int8)
         sc_out[sc_base:sc_base + n - sc_from] = sc_bm[sc_from:n, b]
     return best_out, sc_out
+
+
+def level_scan_plain(batch: ScanBatch, rt_id: int, cov_coef: int):
+    """The same scan as the kernels in plain PyTorch ops, on any device:
+    the chain half, then the winners half."""
+    return level_winners_plain(
+        batch, level_chain_plain(batch, rt_id, cov_coef), rt_id)

@@ -459,8 +459,10 @@ def consensus_for_contig(batch: AlnBatch, tid: int, contig: bytes,
     from ...runtime.budget import cns_device_batch, host_available_bytes
 
     eng = default_engine(device)
-    # per-window slab cost ~ Lt levels (≈1.6/draft base) × 6E slots × two
-    # int32 words (A+M) + scan outputs; host engines size by host memory
+    # per-window device bytes, sized as dense [Lt, 6E] A+M slabs (Lt ≈ 1.6
+    # levels per draft base, E ≈ 15): 1152 B per base.  The compact launch
+    # needs less: ≈ 7 entries per base × (10 B of stream + 12 B of chain
+    # results) + levels × 38 B ≈ 215 B.  Host engines size by host memory.
     lvl_bytes = min(b, length) * 1152
     group = cns_device_batch(
         lvl_bytes, len(starts), device=device,

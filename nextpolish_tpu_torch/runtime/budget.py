@@ -40,9 +40,10 @@ def cns_device_batch(level_bytes_per_window: int, n_windows: int,
                      fraction: float = 0.5, device=None) -> int:
     """How many engine-2 windows fit one device launch.
 
-    level_bytes_per_window ~= Lt * 6E * 8 (the packed A+M arrays); the
-    scan also holds its outputs (~Lt*6*5) and working set, hence the
-    conservative fraction."""
+    level_bytes_per_window ~= Lt * 6E * 8 (dense A+M slabs), which covers
+    the compact launch: the entry stream (10 B an entry), the chain's
+    per-entry results (12 B an entry, freed after the winners) and the
+    winners (~Lt*6*5); hence also the conservative fraction."""
     free = device_free_bytes(device) if free_bytes is None else free_bytes
     per = max(level_bytes_per_window, 1)
     b = int(free * fraction) // per

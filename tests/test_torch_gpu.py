@@ -1,6 +1,6 @@
-"""Card-only tests of the port: the hand-written CUDA level-scan kernel
-against its plain PyTorch version, the pinned-buffer launch path, and
-worker2 --device cuda against --device cpu.
+"""Card-only tests of the port: the hand-written CUDA level-scan kernels
+(the chain and the winners) against their plain PyTorch versions, the
+pinned-buffer launch path, and worker2 --device cuda against --device cpu.
 
 Every test here is marked `gpu` and skips without a card; whether a card
 is there is decided in a fixture, at run time.  The file imports nothing
@@ -19,11 +19,17 @@ from nextpolish_tpu_torch.io.bam import read_bam
 from nextpolish_tpu_torch.models.cns import device_dp as tdd
 from nextpolish_tpu_torch.models.cns import level_scan as tls
 from nextpolish_tpu_torch.models.cns.window import window_prep
+from torch_scan_cases import (
+    max_level_entries,
+    random_window,
+    stale_ring_reads,
+    truncate,
+)
 
 RTS = ["ont", "clr", "rs", "hifi"]
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def cuda_device():
     """The card, or a skip: decided here, at run time, never at import."""
     if not torch.cuda.is_available():
@@ -48,8 +54,9 @@ def _windows(tmp_path, seed, lengths, depth, err, read_len, hotspot=None):
     return out
 
 
-@pytest.fixture
-def windows(tmp_path, cuda_device):
+@pytest.fixture(scope="module")
+def windows(tmp_path_factory, cuda_device):
+    tmp_path = tmp_path_factory.mktemp("windows")
     return (_windows(tmp_path, 5, [900, 1600, 500, 3000], 30, 0.03,
                      (300, 900))
             + _windows(tmp_path, 0, [2000], 110, 0.05, (1000, 2000),
@@ -60,21 +67,72 @@ def windows(tmp_path, cuda_device):
                        (800, 300, True)))
 
 
+def _launches():
+    return (tls.level_chain.launches, tls.level_winners.launches)
+
+
+def _hold(dws, rt, dev):
+    """Both kernels against their plain versions on one batch: the
+    chain's per-entry results and the winners, byte for byte; one
+    level_scan call is one launch of each kernel."""
+    b = tdd.pack_batch(dws).to(dev)
+    rt_id, c = tdd.READ_TYPE_ID[rt], tdd.COV_COEF[rt]
+    before = _launches()
+    kb, ks = tls.level_scan(b, rt_id, c)
+    assert _launches() == (before[0] + 1, before[1] + 1)
+    ki = tls.level_chain(b, rt_id, c)
+    pi = tls.level_chain_plain(b, rt_id, c)
+    pb, ps = tls.level_scan_plain(b, rt_id, c)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(ki, pi)
+    assert torch.equal(kb, pb) and torch.equal(ks, ps)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rt", RTS)
 def test_kernel_matches_plain_on_card(windows, rt, cuda_device):
-    """The CUDA kernel equals the plain version byte for byte (E up to
-    24, Vb > 8, a deep insertion chain), and one call is one launch."""
+    """The CUDA kernels equal the plain versions byte for byte (E up to
+    24, Vb > 8, a deep insertion chain), and one call is one launch of
+    each."""
     assert max(dw.E for dw in windows) > 20
     assert max(dw.Vb for dw in windows) > 8
-    b = tdd.pack_batch(windows).to(cuda_device)
-    rt_id, c = tdd.READ_TYPE_ID[rt], tdd.COV_COEF[rt]
-    before = tls.level_scan.launches
-    kb, ks = tls.level_scan(b, rt_id, c)
-    assert tls.level_scan.launches == before + 1
-    pb, ps = tls.level_scan_plain(b, rt_id, c)
-    torch.cuda.synchronize(cuda_device)
-    assert torch.equal(kb, pb) and torch.equal(ks, ps)
+    _hold(windows, rt, cuda_device)
+
+
+def _risky(case, windows):
+    """Batches for what the chain kernel's design makes risky."""
+    if case == "wide_level":  # a level over 32 entries: lanes loop
+        dws = [windows[4], random_window(3, 300, 24, 6, density=0.9)]
+        assert max(max_level_entries(dw) for dw in dws) > 128
+    elif case == "lengths_100x":  # blocks finish at very different levels
+        dws = [windows[3], random_window(4, 20, 9, 3), windows[6]]
+        n = [dw.n_levels for dw in dws]
+        assert max(n) > 100 * min(n)
+    elif case == "single_level":
+        dws = [truncate(windows[0], 1), random_window(5, 1, 24, 24, 0.5),
+               windows[1]]
+        assert min(dw.n_levels for dw in dws) == 1
+    elif case == "chunk_edges":  # the chain stages 32-level chunks
+        dws = [random_window(10 + n, n, 12, 4) for n in (31, 32, 33, 64, 65)]
+    else:  # delta-0 levels only: ring rows reused after every reset
+        dws = [random_window(6, 3000, 16, 8, d0_frac=1.0),
+               random_window(9, 500, 24, 24, density=0.3, d0_frac=1.0,
+                             ring_frac=0.9)]
+        assert all(stale_ring_reads(dw) > 0 for dw in dws)
+    return dws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rt", RTS)
+@pytest.mark.parametrize("case", ["wide_level", "lengths_100x",
+                                  "single_level", "chunk_edges",
+                                  "d0_ring_reuse"])
+def test_risky_shapes_on_card(windows, case, rt, cuda_device):
+    """Levels over one warp's lanes, windows 100x apart in length, a
+    one-level window, windows ending at and around the chain's chunk
+    boundaries, and runs of delta-0 levels whose stale ring cells must
+    read NEG: both kernels byte-equal to the plain versions."""
+    _hold(_risky(case, windows), rt, cuda_device)
 
 
 @pytest.mark.gpu
@@ -91,17 +149,21 @@ def test_launch_path_on_card_matches_cpu(windows, cuda_device):
 
 @pytest.mark.gpu
 def test_kernel_refuses_bad_input(windows, cuda_device):
-    """Tensors on two devices, a wrong dtype or an unknown read type are
-    refused before anything launches."""
+    """Tensors on two devices, a wrong dtype, an unknown read type or a
+    chain result of the wrong shape are refused before anything
+    launches."""
     b = tdd.pack_batch(windows[:1]).to(cuda_device)
-    before = tls.level_scan.launches
+    before = _launches()
     with pytest.raises(ValueError):
         tls.level_scan(dataclasses.replace(b, meta=b.meta.cpu()), 0, 3)
     with pytest.raises(TypeError):
         tls.level_scan(dataclasses.replace(b, meta=b.meta.long()), 0, 3)
     with pytest.raises(ValueError):
         tls.level_scan(b, 7, 3)
-    assert tls.level_scan.launches == before
+    inter = tls.level_chain(b, 0, 3)
+    with pytest.raises(ValueError):
+        tls.level_winners(b, inter[:2], 0)  # ONT needs n_last
+    assert _launches() == (before[0] + 1, before[1])
 
 
 @pytest.mark.gpu
@@ -112,10 +174,12 @@ def test_worker2_cuda_matches_cpu(tmp_path, cuda_device, monkeypatch):
     case = sim.simulate_case(31, 2, [12000, 9000], 12, read_len=(2000, 5000))
     fa, bam = sim.write_case(case, str(tmp_path))
     monkeypatch.setenv("NPT_CNS_ENGINE", "device")
-    before = tls.level_scan.launches
+    before = _launches()
     assert worker2.main(["-g", fa, "-l", bam, "-r", "ont", "-o",
                          str(tmp_path / "gpu.fa"), "--device", "cuda"]) == 0
-    assert tls.level_scan.launches > before
+    after = _launches()
+    assert after[0] > before[0] and after[0] - before[0] == \
+        after[1] - before[1]
     assert worker2.main(["-g", fa, "-l", bam, "-r", "ont", "-o",
                          str(tmp_path / "cpu.fa"), "--device", "cpu"]) == 0
     assert (tmp_path / "gpu.fa").read_bytes() == \

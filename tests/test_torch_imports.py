@@ -21,7 +21,7 @@ mods = sorted(
 for m in mods:
     importlib.import_module(m.removesuffix(".__init__"))
 from nextpolish_tpu_torch import sim, worker2
-from nextpolish_tpu_torch.models.cns.level_scan import level_scan
+from nextpolish_tpu_torch.models.cns.level_scan import level_chain, level_winners
 os.environ["NPT_CNS_ENGINE"] = "device"
 with tempfile.TemporaryDirectory() as d:
     case = sim.simulate_case(4, 1, 3000, 10, read_len=(1000, 2500))
@@ -31,7 +31,7 @@ with tempfile.TemporaryDirectory() as d:
                          "--device", "cpu"]) == 0
     lines = open(out, "rb").read().split(b"\n")
     assert lines[0].startswith(b">ctg0 ") and len(lines[1]) > 2900
-assert level_scan.launches == 0
+assert level_chain.launches == 0 and level_winners.launches == 0
 assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items() if v is not None)
 print("OK", len(mods))
 '''

@@ -7,14 +7,26 @@ device_dp.dense_window_from_arrays, so both sides scan identical levels.
 The port's plain PyTorch version must equal, exactly (all integer
 arithmetic), the JAX lax.scan path for every read type and every window,
 and the Pallas kernel (interpret mode on the CPU) wherever that kernel
-takes the window (E <= 20).  The hand-written CUDA kernel is held to the
-plain version by tests/test_torch_gpu.py, which needs a card.
+takes the window (E <= 20).  Each half of the plain version is also held
+to the JAX package on its own, on these windows and on random level
+streams (tests/torch_scan_cases.py): the chain's per-entry scores to
+_dp_level run level by level, the winners to _dp_level's winners.  The
+hand-written CUDA kernels are held to the plain versions by
+tests/test_torch_gpu.py, which needs a card.
 """
 import dataclasses
+import functools
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_scan_cases import (
+    max_level_entries,
+    random_window,
+    stale_ring_reads,
+)
 
 from nextpolish_tpu.io.bam import read_bam as jax_read_bam
 from nextpolish_tpu.models.cns import device_dp as jdd
@@ -148,14 +160,14 @@ def test_plain_is_per_window_exact(windows):
 
 
 def test_wrapper_routes_and_checks(windows):
-    """CPU tensors take the plain version (no kernel launch is counted);
+    """CPU tensors take the plain versions (no kernel launch is counted);
     tensors on two devices, or a negative link, are refused by the
-    wrapper."""
+    wrappers."""
     pairs = windows["batch"]
     b = tdd.pack_batch([p for _, p in pairs])
-    before = tls.level_scan.launches
+    before = (tls.level_chain.launches, tls.level_winners.launches)
     best, sc = tls.level_scan(b, 0, 3)
-    assert tls.level_scan.launches == before
+    assert (tls.level_chain.launches, tls.level_winners.launches) == before
     pb, ps = tls.level_scan_plain(b, 0, 3)
     assert torch.equal(best, pb) and torch.equal(sc, ps)
     meta_dev = torch.empty(0, device="meta")
@@ -166,3 +178,138 @@ def test_wrapper_routes_and_checks(windows):
     neg = dataclasses.replace(pdw, ent_A=pdw.ent_A | np.int32(-2 ** 31))
     with pytest.raises(ValueError):
         tls.level_scan(tdd.pack_batch([neg]), 0, 3)
+
+
+# ---------------------------------------------------------------------------
+# the two halves of the plain version, each against the JAX package
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jax_levels_fn(rt_id, cov_coef):
+    """_dp_level over a window's levels at E = Vb = 24 (vmapped over
+    windows): per level the scores it carries out (its sc), n_best and
+    n_last gathered from the carry entering it as _dp_level gathers them,
+    and its winners."""
+    E, Vb = tls.MAX_E, tls.MAX_VB
+    slot_ids = jnp.arange(E, dtype=jnp.int32)
+
+    def step(carry, xs):
+        a, m, mt = xs
+        prev, bnd = carry
+        pred = jnp.concatenate([bnd, prev], axis=0)[
+            ((a >> 8) & 0xFF).reshape(6, E)]
+        mbits = ((m.reshape(6, E)[..., None] >> slot_ids) & 1) != 0
+        n_best = jnp.where(mbits, pred, tls.NEG).max(axis=-1)
+        last = jnp.maximum(jnp.where(mbits, slot_ids, -1).max(axis=-1), 0)
+        n_last = jnp.take_along_axis(pred, last[..., None], axis=-1)[..., 0]
+        carry, (best, sc_bm) = jdd._dp_level(
+            carry, a, m, mt, E=E, Vb=Vb, rt_id=rt_id, cov_coef=cov_coef)
+        return carry, (carry[0], n_best, n_last, best, sc_bm)
+
+    init = (jnp.full((6, E), tls.NEG, jnp.int32),
+            jnp.full((Vb * 6, E), tls.NEG, jnp.int32))
+    return jax.jit(jax.vmap(
+        lambda A, M, meta: jax.lax.scan(step, init, (A, M, meta))[1]))
+
+
+def _jax_halves(dws, rt):
+    """Per window: the JAX package's per-entry (sc, n_best, n_last) in the
+    window's entry order, and its (best, sc_bm) per level."""
+    E, Vb = tls.MAX_E, tls.MAX_VB
+    L = max(dw.n_levels for dw in dws)
+    A = np.zeros((len(dws), L, 6 * E), dtype=np.int32)
+    M = np.zeros_like(A)
+    meta = np.ones((len(dws), L), dtype=np.int32)  # pad levels
+    cols = []
+    for i, dw in enumerate(dws):
+        col = dw.ent_b.astype(np.int64) * E + dw.ent_slot
+        # same-position pred rows move past the wider ring
+        a = dw.ent_A + ((dw.ent_same.astype(np.int32)
+                         * ((Vb - dw.Vb) * 6)) << 8)
+        A[i, dw.ent_lvl, col] = a
+        M[i, dw.ent_lvl, col] = dw.ent_M
+        meta[i, :dw.n_levels] = dw.meta
+        cols.append(col)
+    fn = _jax_levels_fn(tdd.READ_TYPE_ID[rt], tdd.COV_COEF[rt])
+    sc, nb, nl, best, sc_bm = (np.asarray(x) for x in fn(A, M, meta))
+    out = []
+    for i, (dw, col) in enumerate(zip(dws, cols)):
+        ent = [x[i].reshape(L, 6 * E)[dw.ent_lvl, col] for x in (sc, nb, nl)]
+        out.append((np.stack(ent),
+                    best[i, :dw.n_levels], sc_bm[i, :dw.n_levels]))
+    return out
+
+
+@pytest.fixture(scope="module")
+def halves_windows(windows):
+    """Simulated windows of several E and Vb, a random stream, and a
+    random stream of delta-0 levels only (ring rows reused after every
+    reset), dense enough for levels over 32 entries."""
+    rnd = [random_window(7, 300, 13, 5),
+           random_window(8, 200, 24, 24, density=0.4, d0_frac=1.0)]
+    return [p for _, p in windows["batch"] + windows["deep_ring"]] + rnd
+
+
+def test_random_streams_reach_the_risky_states(halves_windows):
+    """The random streams read ring rows that a reset made stale, and hold
+    levels with more entries than a warp has lanes."""
+    rnd = halves_windows[-2:]
+    assert all(stale_ring_reads(dw) > 0 for dw in rnd)
+    assert max_level_entries(rnd[1]) > 64
+
+
+@pytest.mark.parametrize("rt", RTS)
+def test_chain_half_matches_dp_level(halves_windows, rt):
+    """level_chain_plain over one batch of all the windows: every entry's
+    sc equals the score _dp_level carries out of its level, and its n_best
+    (and n_last for ONT) equal those gathered from _dp_level's carry."""
+    dws = halves_windows
+    rt_id = tdd.READ_TYPE_ID[rt]
+    b = tdd.pack_batch(dws)
+    inter = tls.level_chain_plain(b, rt_id, tdd.COV_COEF[rt]).numpy()
+    assert inter.shape == (tls.inter_rows(rt_id), b.ent_A.numel())
+    lo = 0
+    for dw, (ref, _, _) in zip(dws, _jax_halves(dws, rt)):
+        n = len(dw.ent_A)
+        got = inter[:, lo:lo + n]
+        lo += n
+        assert np.array_equal(got, ref[:len(got)])
+
+
+@pytest.mark.parametrize("rt", RTS)
+def test_winners_half_matches_jax(halves_windows, rt):
+    """level_winners_plain, fed the JAX package's per-entry results,
+    gives _dp_level's winners and winning scores at every level."""
+    dws = halves_windows
+    rt_id = tdd.READ_TYPE_ID[rt]
+    ref = _jax_halves(dws, rt)
+    inter = np.concatenate([r[0][:tls.inter_rows(rt_id)] for r in ref],
+                           axis=1)
+    b = tdd.pack_batch(dws)
+    best, sc = tls.level_winners_plain(b, torch.from_numpy(inter), rt_id)
+    for dw, row, (_, rb, rs) in zip(dws, b.win_host, ref):
+        lb, n = int(row[0]), int(row[1])
+        assert np.array_equal(best[lb:lb + n].numpy(), rb)
+        assert np.array_equal(sc[lb:lb + n].numpy(), rs)
+
+
+def test_pack_batch_checks_the_stream(halves_windows):
+    """pack_batch refuses what the kernels do not take: entries out of
+    (cell, slot) order, a match bit at or past E, a pred row past the
+    window's carry, a ring slot past Vb."""
+    dw = halves_windows[-2]
+    tdd.pack_batch([dw])
+    lvl0 = int(np.sum(dw.ent_lvl == 0))
+    assert lvl0 > 1
+    swap = np.arange(len(dw.ent_A))
+    swap[[0, 1]] = [1, 0]
+    bad = [
+        dataclasses.replace(dw, ent_b=dw.ent_b[swap],
+                            ent_slot=dw.ent_slot[swap]),
+        dataclasses.replace(dw, ent_M=dw.ent_M | np.int32(1 << dw.E)),
+        dataclasses.replace(dw, ent_A=dw.ent_A | np.int32(0xFF << 8)),
+        dataclasses.replace(dw, meta=dw.meta | np.int32(0x3F << 2)),
+    ]
+    for x in bad:
+        with pytest.raises(ValueError):
+            tdd.pack_batch([x])
