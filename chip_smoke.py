@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (nextpolish_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 1] [--contigs 8]
+    python3 chip_smoke.py [--seed 1] [--contigs 8] [--phases 1,2,3,4,5]
 
 Phases (any failed check exits non-zero; nothing is caught):
-  1. build   the level-scan kernels (nvcc, sm_90a: the chain and the
-             winners) and the native host library, both from the sources
-             in this checkout, in parallel; each kernel's registers,
-             shared memory and spills as ptxas reports them;
+  1. build   the engine-2 level-scan kernels (nvcc, sm_90a: the chain and
+             the winners), task 1's chain-DP kernels (the forward scan and
+             the traceback) and the native host library, all from the
+             sources in this checkout, in parallel; each kernel's
+             registers, shared memory and spills as ptxas reports them;
+             the native library must hold the task-1 pileup walker;
   2. check   both kernels against their plain PyTorch versions on the
              card, byte for byte (the chain's per-entry scores, then the
              winners), for the ont/clr/rs/hifi rules: a batch of eight
@@ -30,16 +32,34 @@ Phases (any failed check exits non-zero; nothing is caught):
              equal, byte for byte, both kernels on that window alone and
              the full-size launch (winners and score tail); and the group
              cut to its first 4,096 levels per window times each kernel
-             beside its plain version on the same inputs.
+             beside its plain version on the same inputs;
+  4. check   task 1's chain DP on the card, kernels against their plain
+             versions (f bit for bit, the result bytes equal) on random
+             pileup buffers: overflow entries, escaped totals, counts over
+             the planes' cap, FMT 0 and 1, B = 4 rows of different n_dp in
+             one launch, one- and two-chunk rows; and a 20 kb chain's
+             result bytes equal to the f64 oracle slow_chain at rate 0.5;
+  5. main    worker1 -t 1 --device cuda on a simulated bacterial genome
+             (a 4,600,000 bp chromosome and plasmids of 100,000 and 50,000
+             bp, paired-end 150 bp reads at 40x with 1% substitutions and
+             0.2% each of insertions and deletions; draft = truth + 0.5%
+             substitutions): both chain kernels must have been launched,
+             every contig must have gone through the native walker, and
+             every launch's buffer, recorded on the way, must give the same
+             result bytes through the plain versions on the card; then the
+             differences to the truth before and after polishing, and each
+             kernel's time on the largest launch beside its plain version
+             and its bounds.
 
-The number of contigs is the only cut: contig length, depth and error
-rates are fixed.
+Phase 3's number of contigs (--contigs) is the only cut: contig length,
+depth and error rates are fixed; phase 5 is not cut.  --phases runs a
+subset (the build always runs).
 
-The last three lines are the kernels' JSON record (both kernels, one
-port of the TPU kernel), the card's name and power limit, and
-{"ok": true, "device": {...}}.  The script imports
-nothing of JAX or of the JAX package, and exits non-zero without a result
-when no CUDA device is usable.
+The last three lines are the kernels' JSON record (the level scan's two
+kernels, one port of the TPU kernel, and task 1's two chain kernels), the
+card's name and power limit, and {"ok": true, "device": {...}}.  The
+script imports nothing of JAX or of the JAX package, and exits non-zero
+without a result when no CUDA device is usable.
 """
 from __future__ import annotations
 
@@ -63,8 +83,16 @@ TRUNC_LEVELS = 4096  # levels per window of the kernel-vs-plain timing
 KERNELS = ("level_chain", "level_winners")
 TPU_KERNEL = "nextpolish_tpu/models/cns/pallas_scan.py:82"
 SOURCE = "nextpolish_tpu_torch/csrc/level_scan.cu"
+CHAIN_KERNELS = {  # name -> the JAX function it replaces (XLA, not Pallas)
+    "chain_forward": "nextpolish_tpu/ops/tropical.py:104",
+    "chain_traceback": "nextpolish_tpu/ops/tropical.py:191",
+}
+CHAIN_SOURCE = "nextpolish_tpu_torch/csrc/chain_scan.cu"
+# task 1's main path: a chromosome and two plasmids, PE150 at 40x
+TASK1_CONTIGS = (4_600_000, 100_000, 50_000)
+TASK1_DEPTH = 40
 # worst kernel-vs-plain difference seen, per kernel, over every check
-ERR = dict.fromkeys(KERNELS, 0)
+ERR = dict.fromkeys(KERNELS + tuple(CHAIN_KERNELS), 0)
 
 RT_ERRORS = {  # (sub, ins, del) per read type of the kernel checks
     "ont": (0.03, 0.03, 0.03),
@@ -95,6 +123,7 @@ def log(msg: str) -> None:
 def build_all():
     from nextpolish_tpu_torch import native
     from nextpolish_tpu_torch.models.cns import level_scan as ls
+    from nextpolish_tpu_torch.ops import chain as tch
 
     out, errs = {}, []
 
@@ -106,6 +135,7 @@ def build_all():
             errs.append(f"{name}: {e!r}")
 
     threads = [threading.Thread(target=run, args=("level_scan", ls.build)),
+               threading.Thread(target=run, args=("chain_scan", tch.build)),
                threading.Thread(target=run, args=("native", native.build))]
     for t in threads:
         t.start()
@@ -113,14 +143,19 @@ def build_all():
         t.join()
     check(not errs, "build failed: " + "; ".join(errs))
     check(native.available(), "native library did not load")
-    info, secs = out["level_scan"]
-    log(f"build: level_scan nvcc {info['seconds']:.1f} s "
-        f"(wall {secs:.1f} s), native {out['native'][1]:.1f} s")
-    for name, props in ptxas_by_kernel(info["ptxas"]).items():
-        log(f"  ptxas: {name}: {props}")
+    check(hasattr(native._load(), "npt_pileup_planes"),
+          "the native library has no npt_pileup_planes")
+    for lib in ("level_scan", "chain_scan"):
+        info, secs = out[lib]
+        log(f"build: {lib} nvcc {info['seconds']:.1f} s (wall {secs:.1f} s)")
+        for name, props in ptxas_by_kernel(info["ptxas"]).items():
+            log(f"  ptxas: {name}: {props}")
+    log(f"build: native {out['native'][1]:.1f} s "
+        f"({os.path.basename(out['native'][0])})")
     log(f"  level_chain dynamic shared memory {ls.chain_smem_bytes()} B "
         "per block")
-    log('build: ' + json.dumps({"kernels": list(KERNELS)}))
+    log('build: ' + json.dumps({"kernels": list(KERNELS)
+                                + list(CHAIN_KERNELS)}))
 
 
 def ptxas_by_kernel(text: str) -> dict:
@@ -131,7 +166,9 @@ def ptxas_by_kernel(text: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(level_chain_kernel|level_winners_kernel|"
-                          r"smem_step_probe)(?:IL[bi](\d)E)?", m.group(1))
+                          r"smem_step_probe|fwd_chunks|fwd_up|fwd_down|"
+                          r"fwd_replay|tb_maps|tb_walk|tb_replay)"
+                          r"(?:IL[bi](\d)E)?", m.group(1))
             cur = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
                    if k else m.group(1))
             out[cur] = []
@@ -517,11 +554,392 @@ def main_path(tmp, dev, args):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase 4: task 1's chain kernels vs plain on the card
+# ---------------------------------------------------------------------------
+
+class capture_scans:
+    """While active, ops.chain's two scan wrappers record their inputs on
+    the way to the kernels: every call (`keep="all"`) or the call with the
+    most cells (`keep="largest"`).  `.orig` holds the wrappers.  A wrapper
+    counts its launches on the module's name for it, so while the
+    recorders stand in for the wrappers the counts live on the recorders
+    and go back to the wrappers on exit."""
+
+    def __init__(self, keep="all"):
+        from nextpolish_tpu_torch.ops import chain as tch
+
+        self.tch = tch
+        self.keep = keep
+        self.orig = (tch.forward_states, tch.traceback_batch)
+        self.fwd, self.tb = [], []
+
+    def _store(self, dst, args):
+        if self.keep == "all" or not dst:
+            dst.append(args)
+        elif args[0].shape[:2].numel() > dst[0][0].shape[:2].numel():
+            dst[0] = args
+
+    def __enter__(self):
+        fwd, tb = self.orig
+
+        def rec_fwd(A, s0, chunk=128):
+            self._store(self.fwd, (A, s0))
+            return fwd(A, s0, chunk)
+
+        def rec_tb(P, b_end, chunk=128):
+            self._store(self.tb, (P, b_end))
+            return tb(P, b_end, chunk)
+
+        rec_fwd.launches, rec_tb.launches = fwd.launches, tb.launches
+        self.tch.forward_states, self.tch.traceback_batch = rec_fwd, rec_tb
+        return self
+
+    def __exit__(self, *exc):
+        fwd, tb = self.orig
+        fwd.launches = self.tch.forward_states.launches
+        tb.launches = self.tch.traceback_batch.launches
+        self.tch.forward_states, self.tch.traceback_batch = self.orig
+
+
+def hold_scans(cap, dev, label):
+    """Each captured scan's kernel against its plain version on the same
+    card tensors: f bit for bit, the choices byte for byte."""
+    import torch
+
+    tch = cap.tch
+    fwd, tb = cap.orig
+    for A, s0 in cap.fwd:
+        fk, fp = fwd(A, s0), tch.forward_states_plain(A, s0)
+        torch.cuda.synchronize(dev)
+        err = float((fk.double() - fp.double()).abs().max())
+        ERR["chain_forward"] = max(ERR["chain_forward"], err)
+        check(torch.equal(fk.view(torch.int32), fp.view(torch.int32)),
+              f"chain_forward kernel != plain ({label}, A "
+              f"{tuple(A.shape)}, max_abs_err {err})")
+    for P, b_end in cap.tb:
+        ck, cp = tb(P, b_end), tch.traceback_batch_plain(P, b_end)
+        torch.cuda.synchronize(dev)
+        err = int((ck.int() - cp.int()).abs().max())
+        ERR["chain_traceback"] = max(ERR["chain_traceback"], err)
+        check(torch.equal(ck, cp), f"chain_traceback kernel != plain "
+              f"({label}, P {tuple(P.shape)})")
+
+
+def chain_case(dev, label, bufs, key):
+    """One launch of the DP on the card, kernels against plain: the
+    result bytes, and each scan's f / choices."""
+    import numpy as np
+    import torch
+
+    from nextpolish_tpu_torch.ops import chain as tch
+
+    dbuf = torch.from_numpy(np.stack(bufs).view(np.int16)).to(dev)
+    with capture_scans() as cap:
+        got = tch.chain_correct_planes_batch(dbuf, *key)
+    want = tch.chain_correct_planes_batch(dbuf, *key, plain=True)
+    torch.cuda.synchronize(dev)
+    check(len(cap.fwd) == 1 and len(cap.tb) == 1,
+          f"{label}: expected one launch of each chain kernel")
+    hold_scans(cap, dev, label)
+    L, Emax, EOV, ET, FMT, TH, PS = key
+    log(f"check task1 {label}: B={len(bufs)} L={L} Emax={Emax} EOV={EOV} "
+        f"ET={ET} FMT={FMT}: result bytes "
+        f"{'equal' if torch.equal(got, want) else 'DIFFERENT'}")
+    check(torch.equal(got, want), f"chain DP kernels != plain ({label})")
+    return got.cpu().numpy()
+
+
+def chain_checks(dev, seed):
+    import numpy as np
+    import torch
+
+    from nextpolish_tpu_torch import sim
+    from nextpolish_tpu_torch.ops import chain as tch
+
+    def packed(n_dp, per, heavy=0, big=False, rolling=False, s=0, t0=None):
+        uk, cn, rk, refkmer, total = sim.random_pileup(
+            seed + s, n_dp, per, heavy, big, rolling)
+        if t0 is not None:
+            total[0] = t0  # one TH bucket across rows
+        buf, *key = tch.pack_chain_planes(uk, cn, rk, refkmer, total, n_dp,
+                                          0.5)
+        return buf, tuple(key)
+
+    cases = {
+        "overflow entries (EOV > 0), FMT 1": packed(1500, 4, heavy=40),
+        "escaped totals (ET > 0), counts over CNT_CAP": packed(
+            1500, 2, big=True, s=1),
+        "FMT 0 (rolling draft kmers)": packed(3000, 3, rolling=True, s=2),
+        "one chunk (n_dp 100)": packed(100, 3, rolling=True, s=3),
+        "two chunks (n_dp 200)": packed(200, 3, s=4),
+    }
+    for label, (buf, key) in cases.items():
+        chain_case(dev, label, [buf], key)
+    L, Emax, EOV, ET, FMT, TH, PS = cases[
+        "overflow entries (EOV > 0), FMT 1"][1]
+    check(EOV > 0, "no overflow case")
+    check(cases["escaped totals (ET > 0), counts over CNT_CAP"][1][3] > 0,
+          "no escaped-total case")
+    check(cases["FMT 0 (rolling draft kmers)"][1][4] == 0, "no FMT 0 case")
+    check(cases["one chunk (n_dp 100)"][1][0] == 128
+          and cases["two chunks (n_dp 200)"][1][0] == 256,
+          "no one- and two-chunk cases")
+    rows = [packed(1100 - 8 * b, 4, heavy=10, s=10 + b, t0=97)
+            for b in range(4)]
+    check(len({k for _, k in rows}) == 1, "B=4 rows span shape buckets")
+    chain_case(dev, "B=4 rows, n_dp 1100..1076", [b for b, _ in rows],
+               rows[0][1])
+
+    # a 20 kb chain-connected pileup (the draft kmer chain at depth plus
+    # noise kmers, the draft kmer first) against the f64 oracle
+    rng = np.random.default_rng(seed)
+    n_dp = 20_000
+    sym = rng.integers(1, 6, n_dp)
+    refkmer = ((np.concatenate([[0, 0], sym[:-2]]) << 6)
+               | (np.concatenate([[0], sym[:-1]]) << 3) | sym)
+    counts = np.zeros((n_dp, 512), dtype=np.int64)
+    counts[np.arange(n_dp), refkmer] = rng.integers(5, 30, n_dp)
+    for c in range(n_dp):
+        for _ in range(int(rng.integers(0, 3))):
+            k = ((int(refkmer[c]) & ~7) | int(rng.integers(1, 6))
+                 if rng.random() < 0.5 else int(rng.integers(0, 512)))
+            counts[c, k] += int(rng.integers(1, 12))
+    total = counts.sum(axis=1).astype(np.int32)
+    uk = np.flatnonzero(counts.reshape(-1)).astype(np.int64)
+    ucell = uk // 512
+    rk = np.arange(len(uk)) - np.searchsorted(ucell, ucell)
+    r_ref = rk[(uk % 512) == refkmer[ucell]][ucell]
+    rk = np.where(rk == r_ref, 0, rk + (rk < r_ref))
+    rank = np.full((n_dp, 512), 0xFFFF, dtype=np.uint16)
+    rank.reshape(-1)[uk] = rk
+    t0 = time.perf_counter()
+    want = tch.slow_chain(counts, refkmer.astype(np.int32), total, 0.5,
+                          rank=rank)
+    slow_s = time.perf_counter() - t0
+    buf, *key = tch.pack_chain_planes(uk, counts.reshape(-1)[uk],
+                                      rk.astype(np.uint16),
+                                      refkmer.astype(np.int32), total, n_dp,
+                                      0.5)
+    got = chain_case(dev, "20 kb chain", [buf], tuple(key))[0][:n_dp] & 7
+    diff = int(np.count_nonzero(got != want))
+    log(f"check task1 20 kb chain vs slow_chain (f64, {slow_s:.1f} s): "
+        f"{diff} cells differ of {n_dp}")
+    check(diff == 0, "chain DP on the card != slow_chain at rate 0.5")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: task 1's main path
+# ---------------------------------------------------------------------------
+
+def edit_distance(a: bytes, b: bytes) -> int:
+    """Levenshtein distance, one numpy row per base of a."""
+    import numpy as np
+
+    a = np.frombuffer(a, dtype=np.uint8)
+    b = np.frombuffer(b, dtype=np.uint8)
+    idx = np.arange(len(b) + 1)
+    prev = idx.copy()
+    for i in range(1, len(a) + 1):
+        x = np.empty(len(b) + 1, dtype=np.int64)
+        x[0] = i
+        x[1:] = np.minimum(prev[1:] + 1, prev[:-1] + (b != a[i - 1]))
+        prev = np.minimum.accumulate(x - idx) + idx
+    return int(prev[-1])
+
+
+def differences(truth: bytes, seq: bytes, step: int = 2000) -> int:
+    """Edit distance of seq to truth for near-identical, colinear
+    sequences: exact 32-base anchors of the truth every `step` bases are
+    found near their expected place in seq, and the segments between
+    anchors are compared (equal lengths with few mismatches by Hamming
+    distance, others by edit distance)."""
+    import numpy as np
+
+    seq = seq.upper()
+    anchors = [(0, 0)]
+    off = 0
+    for p in range(step, len(truth) - 32, step):
+        q = seq.find(truth[p:p + 32], max(0, p + off - 500), p + off + 532)
+        if q >= 0:
+            anchors.append((p, q))
+            off = q - p
+    anchors.append((len(truth), len(seq)))
+    total = 0
+    for (p0, q0), (p1, q1) in zip(anchors[:-1], anchors[1:]):
+        a, b = truth[p0:p1], seq[q0:q1]
+        if len(a) == len(b):
+            d = int(np.count_nonzero(np.frombuffer(a, np.uint8)
+                                     != np.frombuffer(b, np.uint8)))
+            if d <= 20:
+                total += d
+                continue
+        total += edit_distance(a, b)
+    return total
+
+
+def chain_bounds(B: int, L: int, step_cycles: int, mhz: float) -> dict:
+    """Least time of each chain kernel's work on an H100: bytes moved (each
+    input read once, each output written once) over HBM bandwidth, and
+    operations over the non-tensor fp32 rate (the traceback's integer
+    work rated so); the larger bounds it.  Forward: per cell one 8x8
+    (max,+) product (512 adds, 448 maxes) and its renormalisation (63
+    maxes, 64 subtractions) in phase 1, 64 adds and 56 maxes in the
+    replay, and two products per chunk in the tree.  Traceback: per cell
+    about 100 integer operations (pack a row, compose eight 3-bit fields,
+    one replay step).  Also the dependency bound: 128 + 2 log2(chunks) +
+    128 dependent steps, each one dependent shared-memory load -> store
+    (measured here) at the SM clock.  Returns {kernel: (ms, bound_by,
+    bytes, ops)} and the dependency bound in ms."""
+    nch = L // 128
+    prod = 512 + 448
+    work = {
+        "chain_forward": (B * (L * 256 + 32 + L * 32),
+                          B * (L * (prod + 127 + 120) + 2 * nch * prod)),
+        "chain_traceback": (B * (L * 32 + 4 + L), B * L * 100),
+    }
+    out = {}
+    for k, (nbytes, ops) in work.items():
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_INT_OPS_PER_S * 1e3
+        out[k] = (max(t_bytes, t_ops),
+                  "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+    depth = 256 + 2 * (nch.bit_length() - 1)
+    return out, depth * step_cycles / (mhz * 1e6) * 1e3
+
+
+def task1_main_path(tmp, dev, args):
+    import numpy as np
+    import torch
+
+    from nextpolish_tpu_torch import sim, worker1
+    from nextpolish_tpu_torch.models import score_chain as sc
+    from nextpolish_tpu_torch.models.cns import level_scan as ls
+    from nextpolish_tpu_torch.ops import chain as tch
+    from nextpolish_tpu_torch.runtime import trace
+
+    t0 = time.perf_counter()
+    case = sim.simulate_short_case(args.seed, TASK1_CONTIGS, TASK1_DEPTH)
+    t1 = time.perf_counter()
+    fa, bam = sim.write_case(case, os.path.join(tmp, "task1"))
+    n_reads = len(case.records)
+    case.records = None  # the BAM holds them now
+    log(f"task1: simulated {len(TASK1_CONTIGS)} contigs, "
+        f"{sum(TASK1_CONTIGS)} bp, {n_reads} PE150 reads at {TASK1_DEPTH}x "
+        f"({t1 - t0:.1f} s), BAM {os.path.getsize(bam)} B "
+        f"({time.perf_counter() - t1:.1f} s)")
+
+    # every launch's buffer and result, recorded on the way
+    launches_rec = []
+    dispatch = sc.dispatch_chain_group
+
+    def recording_dispatch(handles, device=None):
+        bufs = np.stack([h.buf for h in handles])
+        dispatch(handles, device)
+        launches_rec.append((bufs, handles[0].key, handles[0].launch,
+                             [h.name for h in handles]))
+
+    out = os.path.join(tmp, "task1", "polished.fa")
+    sc.dispatch_chain_group = recording_dispatch
+    try:
+        with capture_scans(keep="largest") as cap:
+            trace.reset("task1")
+            torch.cuda.reset_peak_memory_stats(dev)
+            tch.forward_states.launches = 0
+            tch.traceback_batch.launches = 0
+            t0 = time.perf_counter()
+            rc = worker1.main(["-g", fa, "-s", bam, "-t", "1", "-o", out,
+                               "--device", "cuda"])
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            launches = {"chain_forward": tch.forward_states.launches,
+                        "chain_traceback": tch.traceback_batch.launches}
+            snap = trace.snapshot("task1")
+            peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        sc.dispatch_chain_group = dispatch
+    check(rc == 0, f"worker1 -t 1 --device cuda returned {rc}")
+    for k, n in launches.items():
+        check(n > 0, f"the task-1 main path launched {k} no time")
+
+    def got(key):
+        return snap.get(key, {}).get("s", 0)
+
+    walks = int(got("task1.native_walks"))
+    log(f"task1: native walks {walks} of {len(TASK1_CONTIGS)} contigs")
+    check(walks == len(TASK1_CONTIGS),
+          "a contig of the main path missed the native walker")
+    fasta = open(out, "rb").read().split(b"\n")
+    polished = dict(zip((h[1:].split(b" ")[0].decode() for h in fasta[0::2]),
+                        fasta[1::2]))
+    n_pol = sum(len(s) for s in polished.values())
+    log(f"task1: worker1 wall {wall:.2f} s, {n_pol} polished bases, "
+        f"{n_pol / wall:.0f} bases/s; kernel launches {launches}; chain "
+        f"launches {int(got('task1.chain_launches'))}, cells "
+        f"{int(got('task1.chain_cells'))}; device DP (task1.kernel, summed "
+        f"CUDA events) {got('task1.kernel') * 1e3:.1f} ms; "
+        f"max_memory_allocated {peak} B")
+    log("task1: spans (s, thread-summed): " + ", ".join(
+        f"{k} {got(k):.3f}" for k in (
+            "task1.host", "task1.fetch", "task1.walk", "task1.pack",
+            "task1.dispatch", "task1.wait")))
+    for name, truth, draft in zip(case.names, case.truths, case.drafts):
+        check(name in polished, f"{name} missing from the output")
+        before = differences(truth, draft)
+        after = differences(truth, polished[name])
+        log(f"task1: {name} ({len(truth)} bp): differences to the truth "
+            f"{before} in the draft, {after} after polishing "
+            f"(lowercase {sum(1 for c in polished[name] if c >= 97)})")
+
+    # every launch again through the plain versions on the card
+    for bufs, key, launch, names in launches_rec:
+        dbuf = torch.from_numpy(bufs.view(np.int16)).to(dev)
+        plain = tch.chain_correct_planes_batch(dbuf, *key, plain=True)
+        same = np.array_equal(plain.cpu().numpy(), launch.wait())
+        log(f"task1: launch {names} (L={key[0]}): result bytes "
+            f"{'equal' if same else 'DIFFERENT'} through the plain versions")
+        check(same, f"task-1 launch {names} differs from the plain versions")
+        del dbuf, plain
+    # the largest launch's scans: kernel vs plain, bit for bit, and timed
+    hold_scans(cap, dev, "main path's largest launch")
+    fwd, tb = cap.orig
+    (A, s0), (P, b_end) = cap.fwd[0], cap.tb[0]
+    B, L = A.shape[0], A.shape[1]
+    fwd(A, s0), tb(P, b_end)  # warm-up
+    ms = {"chain_forward": time_ms(lambda: fwd(A, s0), dev, 5),
+          "chain_traceback": time_ms(lambda: tb(P, b_end), dev, 5)}
+    plain_ms = {
+        "chain_forward": time_ms(lambda: tch.forward_states_plain(A, s0),
+                                 dev, 1),
+        "chain_traceback": time_ms(
+            lambda: tch.traceback_batch_plain(P, b_end), dev, 1)}
+    mhz = sm_clock_mhz()
+    step = ls.smem_step_cycles(dev)
+    bnd, dep_ms = chain_bounds(B, L, step, mhz)
+    recs = []
+    for k in CHAIN_KERNELS:
+        log(f"task1: {k} on the largest launch (B={B}, L={L}): "
+            f"{ms[k]:.3f} ms per launch, plain {plain_ms[k]:.1f} ms; bound "
+            f"{bnd[k][0]:.4f} ms ({bnd[k][1]}: {bnd[k][2]} B, {bnd[k][3]} "
+            f"ops); dependency bound {dep_ms:.4f} ms ({step} cycles a step "
+            f"at {mhz:.0f} MHz)")
+        recs.append(dict(name=k, route="cuda", source=CHAIN_SOURCE,
+                         replaces=CHAIN_KERNELS[k], launches=launches[k],
+                         max_abs_err=ERR[k], ms=ms[k], plain_ms=plain_ms[k],
+                         bound_ms=bnd[k][0], bound_by=bnd[k][1],
+                         library_ms=None, dependency_bound_ms=dep_ms,
+                         cells=B * L))
+    return recs
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--contigs", type=int, default=8)
+    p.add_argument("--phases", default="1,2,3,4,5",
+                   help="phases to run (the build always runs)")
     args = p.parse_args(argv)
+    phases = {int(x) for x in args.phases.split(",")}
 
     # the port must run with JAX and the JAX package out of reach
     sys.modules["jax"] = None
@@ -540,11 +958,22 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
     build_all()
+    recs = []
     with tempfile.TemporaryDirectory(prefix="npt_smoke_") as tmp:
-        t0 = time.perf_counter()
-        kernel_checks(tmp, dev, args.seed)
-        log(f"check: all byte-equal ({time.perf_counter() - t0:.1f} s)")
-        recs = main_path(tmp, dev, args)
+        if 2 in phases:
+            t0 = time.perf_counter()
+            kernel_checks(tmp, dev, args.seed)
+            log(f"check: all byte-equal ({time.perf_counter() - t0:.1f} s)")
+        if 3 in phases:
+            recs += main_path(tmp, dev, args)
+        if 4 in phases:
+            t0 = time.perf_counter()
+            chain_checks(dev, args.seed)
+            log(f"check task1: all equal ({time.perf_counter() - t0:.1f} s)")
+        if 5 in phases:
+            t0 = time.perf_counter()
+            recs += task1_main_path(tmp, dev, args)
+            log(f"task1: phase 5 took {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

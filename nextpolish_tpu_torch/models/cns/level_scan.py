@@ -38,17 +38,14 @@ winners refuse a negative link (a device-side assert on the card).
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ...runtime import nvcc
 
 NEG = -(2 ** 29)  # masked-out candidate score
 NEGINIT = -(2 ** 30)  # "unset" p_pp / raiser
@@ -63,12 +60,7 @@ MAX_E = 24
 MAX_VB = 24
 WIN_FIELDS = 8
 
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SRC = os.path.join(_PKG, "csrc", "level_scan.cu")
-_BUILD = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_SRC = os.path.join(nvcc.CSRC_DIR, "level_scan.cu")
 
 
 @dataclass
@@ -103,43 +95,10 @@ class ScanBatch:
 _LIB = None
 
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 shutil.which("nvcc") or "",
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the level-scan kernel is built from "
-                       f"{_SRC} at first use")
-
-
 def build() -> dict:
-    """Compile csrc/level_scan.cu for sm_90a into _build/ (once per source
-    content, under a file lock).  Returns {"path", "seconds", "ptxas"}:
-    seconds is 0.0 when an earlier build of the same source was reused."""
-    src = open(_SRC, "rb").read()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = os.path.join(_BUILD, f"liblevel_scan.{digest[:12]}.so")
-    log = so + ".log"
-    os.makedirs(_BUILD, exist_ok=True)
-    with open(os.path.join(_BUILD, "level_scan.lock"), "w") as lk:
-        fcntl.flock(lk, fcntl.LOCK_EX)
-        seconds = 0.0
-        if not os.path.exists(so):
-            t0 = time.perf_counter()
-            r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", so + ".tmp",
-                                _SRC], capture_output=True, text=True,
-                               timeout=600)
-            seconds = time.perf_counter() - t0
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                                   f"{r.stdout}\n{r.stderr}")
-            with open(log, "w") as fh:
-                fh.write(r.stdout + r.stderr)
-            os.replace(so + ".tmp", so)
-    ptxas = open(log).read() if os.path.exists(log) else ""
-    return dict(path=so, seconds=seconds, ptxas=ptxas)
+    """Compile csrc/level_scan.cu for sm_90a into _build/ (see
+    runtime/nvcc.py).  Returns {"path", "seconds", "ptxas"}."""
+    return nvcc.build(_SRC, "level_scan")
 
 
 def _load():

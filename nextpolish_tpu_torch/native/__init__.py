@@ -1,35 +1,82 @@
 """ctypes loader for the native host substrate (libnpt.so).
 
-Builds on demand with `make` if the shared object is missing; every entry
-point has a pure-Python fallback in io/, so `available()` gating is enough.
-The library is built into the package's `_build/` directory (not tracked
-by git); a file lock keeps concurrent processes from building it twice.
+Builds on demand with `make`; every entry point has a pure-Python fallback
+(io/, ops/pileup.py), so `available()` gating is enough.  The library is
+built into the package's `_build/` directory (not tracked by git) under a
+name that hashes its sources, its Makefile (hence its flags) and the host
+CPU's identity: an edited source, or a checkout carried to a machine with
+another CPU (the Makefile builds with -march=native), builds a new library
+instead of loading a stale or foreign one.  A file lock keeps concurrent
+processes from building it twice.
 """
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import hashlib
 import os
+import platform
+import re
 import subprocess
+import threading
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD = os.path.join(os.path.dirname(_DIR), "_build")
-_SO = os.path.join(_BUILD, "libnpt.so")
+_MAKEFILE = os.path.join(_DIR, "Makefile")
 _LIB = None
 _TRIED = False
 
 
+def _makefile_sources() -> list:
+    """The Makefile's SRCS, as absolute paths."""
+    text = open(_MAKEFILE).read().replace("\\\n", " ")
+    m = re.search(r"^SRCS\s*=(.*)$", text, re.M)
+    return [os.path.join(_DIR, s) for s in m.group(1).split()]
+
+
+# the sources the Makefile builds the library from (the hash reads these)
+SOURCES = _makefile_sources()
+
+
+def cpu_identity() -> str:
+    """The host CPU's model name and feature flags (/proc/cpuinfo), or the
+    platform's processor string where that file does not exist."""
+    try:
+        lines = open("/proc/cpuinfo").read().splitlines()
+    except OSError:
+        return platform.machine() + " " + platform.processor()
+    keep = []
+    for key in ("model name", "flags", "Features", "CPU part"):
+        hit = next((ln for ln in lines if ln.split(":")[0].strip() == key),
+                   None)
+        if hit is not None:
+            keep.append(hit)
+    return "\n".join(keep) or platform.machine()
+
+
+def library_path() -> str:
+    """Where the library for this source content, Makefile and CPU lives."""
+    h = hashlib.sha1()
+    for src in [*SOURCES, _MAKEFILE]:
+        h.update(os.path.basename(src).encode() + b"\0")
+        h.update(open(src, "rb").read())
+    h.update(cpu_identity().encode())
+    return os.path.join(_BUILD, f"libnpt.{h.hexdigest()[:12]}.so")
+
+
 def build() -> str:
-    """Build libnpt.so (if missing) under a lock; returns its path."""
+    """Build the library (if this content has none yet) under a lock;
+    returns its path.  Raises if the build fails."""
+    so = library_path()
     os.makedirs(_BUILD, exist_ok=True)
     with open(os.path.join(_BUILD, "libnpt.lock"), "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
-        if not os.path.exists(_SO):
-            subprocess.run(["make", "-C", _DIR, f"OUT={_SO}"], check=True,
+        if not os.path.exists(so):
+            subprocess.run(["make", "-C", _DIR, f"OUT={so}"], check=True,
                            capture_output=True, timeout=300)
-    return _SO
+    return so
 
 
 def _load():
@@ -38,11 +85,11 @@ def _load():
         return _LIB
     _TRIED = True
     try:
-        build()
+        so = build()
     except Exception:
         return None
     try:
-        lib = ctypes.CDLL(_SO)
+        lib = ctypes.CDLL(so)
     except OSError:
         return None
     lib.npt_bgzf_size.restype = ctypes.c_longlong
@@ -59,6 +106,10 @@ def _load():
         lib.npt_cns_free.restype = None
     if hasattr(lib, "npt_poa_consensus"):
         lib.npt_poa_consensus.restype = ctypes.c_longlong
+    if hasattr(lib, "npt_pileup_sgs"):
+        lib.npt_pileup_sgs.restype = ctypes.c_longlong
+    if hasattr(lib, "npt_pileup_planes"):
+        lib.npt_pileup_planes.restype = ctypes.c_longlong
     if hasattr(lib, "npt_cns_prepare"):
         lib.npt_cns_prepare.restype = ctypes.POINTER(_NptCnsPrep)
         lib.npt_cns_prep_free.restype = None
@@ -353,3 +404,190 @@ def poa_consensus(seqs):
     finally:
         if out:
             lib.npt_cns_free(out)
+
+
+# --- task-1 pileup walker (pileup.cpp); bindings copied from
+# nextpolish_tpu/native/__init__.py ---
+
+# dense count-table budget for the native pileup path (bytes); beyond this
+# the caller falls back to the numpy event-expansion path
+PILEUP_DENSE_BYTES = int(os.environ.get("NPT_PILEUP_DENSE_BYTES",
+                                        8 << 30))
+
+# persistent all-zero count tables (grow-only), checked out under a lock:
+# the task-1 pipeline preps two contigs concurrently, and per-thread
+# storage would die with each pipeline's thread pool (re-faulting ~100 MB
+# per run)
+_PILEUP_POOL: list = []
+_PILEUP_LOCK = threading.Lock()
+
+
+def pileup_sgs(ridx, rpos, cigar, cigar_off, cigar_len, seq_nib, seq_off,
+               lqseq, start: int, end: int, cell_of, ins_len, n_cells: int,
+               n_dp: int, refkmer, trim_len_edge: int,
+               max_span: int = 1 << 40, n_threads: int = 0):
+    """Single-pass native pileup (pileup.cpp), multithreaded over cell
+    ranges.  `max_span` bounds any read's reference span (tightens the
+    per-thread read subranges; the default disables the bound).  Returns
+    sorted sparse (uk int64, cn int64, rk uint16 first-observation ranks,
+    totals int32) or None when unavailable / too big."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "npt_pileup_sgs"):
+        return None
+    if n_cells * 1024 > PILEUP_DENSE_BYTES:
+        return None
+
+    def c64(a):
+        return np.ascontiguousarray(a, dtype=np.int64)
+
+    ridx = c64(ridx)
+    cell_of = c64(cell_of)
+    ins_len = c64(ins_len)
+    rpos = np.ascontiguousarray(rpos, dtype=np.int32)
+    cigar = np.ascontiguousarray(cigar, dtype=np.uint32)
+    cigar_off = c64(cigar_off)
+    cigar_len = np.ascontiguousarray(cigar_len, dtype=np.int32)
+    seq_nib = np.ascontiguousarray(seq_nib, dtype=np.uint8)
+    seq_off = c64(seq_off)
+    lqseq = np.ascontiguousarray(lqseq, dtype=np.int32)
+    if refkmer is not None:
+        refkmer = np.ascontiguousarray(refkmer, dtype=np.int32)
+    with _PILEUP_LOCK:
+        scratch = _PILEUP_POOL.pop() if _PILEUP_POOL else None
+    if scratch is None or len(scratch) < n_cells * 512:
+        scratch = np.zeros(n_cells * 512, dtype=np.uint16)
+    counts = scratch
+    totals = np.zeros(n_cells, dtype=np.int32)
+    out_uk = ctypes.POINTER(ctypes.c_int64)()
+    out_cn = ctypes.POINTER(ctypes.c_int64)()
+    out_rk = ctypes.POINTER(ctypes.c_int64)()
+
+    def p(a):
+        return a.ctypes.data_as(ctypes.c_void_p)
+
+    nnz = lib.npt_pileup_sgs(
+        p(ridx), ctypes.c_longlong(len(ridx)), p(rpos), p(cigar),
+        p(cigar_off), p(cigar_len), p(seq_nib), p(seq_off), p(lqseq),
+        ctypes.c_longlong(start), ctypes.c_longlong(end), p(cell_of),
+        p(ins_len), ctypes.c_longlong(n_cells), ctypes.c_longlong(n_dp),
+        p(refkmer) if refkmer is not None else None,
+        ctypes.c_int(trim_len_edge), ctypes.c_longlong(max_span),
+        ctypes.c_int(n_threads), p(counts), p(totals),
+        ctypes.byref(out_uk), ctypes.byref(out_cn), ctypes.byref(out_rk),
+    )
+    if nnz < 0:
+        return None
+    try:
+        uk = np.ctypeslib.as_array(out_uk, shape=(nnz,)).copy() if nnz else \
+            np.empty(0, np.int64)
+        cn = np.ctypeslib.as_array(out_cn, shape=(nnz,)).copy() if nnz else \
+            np.empty(0, np.int64)
+        rk = np.ctypeslib.as_array(out_rk, shape=(nnz,)).copy() if nnz else \
+            np.empty(0, np.int64)
+    finally:
+        for ptr in (out_uk, out_cn, out_rk):
+            if ptr:
+                lib.npt_cns_free(ptr)
+        with _PILEUP_LOCK:
+            _PILEUP_POOL.append(counts)
+    return uk, cn, rk.astype(np.uint16), totals
+
+
+_SLOT_POOL: list = []
+
+
+def pileup_planes(ridx, rpos, cigar, cigar_off, cigar_len, seq_nib, seq_off,
+                  lqseq, start: int, end: int, cell_of, ins_len,
+                  n_cells: int, n_dp: int, refkmer, trim_len_edge: int,
+                  max_span: int = 1 << 40, n_threads: int = 0):
+    """Slot-walker pileup emitting the chain-DP plane format directly
+    (pileup.cpp npt_pileup_planes): per-cell 8-slot cache lines instead
+    of the dense [cells*512] table, slot index == insertion rank, no
+    dirty-list sort.  Returns (upper [7, n_dp] u16 planes, c0 [n_dp] u8,
+    totals [n_cells] i32, stats [16] i32, (ov_key, ov_cn, ov_rk)) or
+    None when unavailable."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "npt_pileup_planes"):
+        return None
+
+    def c64(a):
+        return np.ascontiguousarray(a, dtype=np.int64)
+
+    ridx = c64(ridx)
+    cell_of = c64(cell_of)
+    ins_len = c64(ins_len)
+    rpos = np.ascontiguousarray(rpos, dtype=np.int32)
+    cigar = np.ascontiguousarray(cigar, dtype=np.uint32)
+    cigar_off = c64(cigar_off)
+    cigar_len = np.ascontiguousarray(cigar_len, dtype=np.int32)
+    seq_nib = np.ascontiguousarray(seq_nib, dtype=np.uint8)
+    seq_off = c64(seq_off)
+    lqseq = np.ascontiguousarray(lqseq, dtype=np.int32)
+    refkmer = np.ascontiguousarray(refkmer, dtype=np.int32)
+    with _PILEUP_LOCK:
+        slots = _SLOT_POOL.pop() if _SLOT_POOL else None
+    if slots is None or len(slots) < n_cells * 8:
+        slots = np.zeros(n_cells * 8, dtype=np.uint32)
+    totals = np.zeros(n_cells, dtype=np.int32)
+    upper = np.zeros(7 * n_dp, dtype=np.uint16)
+    c0 = np.zeros(n_dp, dtype=np.uint8)
+    stats = np.zeros(16, dtype=np.int32)
+    out_k = ctypes.POINTER(ctypes.c_int64)()
+    out_c = ctypes.POINTER(ctypes.c_int64)()
+    out_r = ctypes.POINTER(ctypes.c_int64)()
+
+    def p(a):
+        return a.ctypes.data_as(ctypes.c_void_p)
+
+    nov = lib.npt_pileup_planes(
+        p(ridx), ctypes.c_longlong(len(ridx)), p(rpos), p(cigar),
+        p(cigar_off), p(cigar_len), p(seq_nib), p(seq_off), p(lqseq),
+        ctypes.c_longlong(start), ctypes.c_longlong(end), p(cell_of),
+        p(ins_len), ctypes.c_longlong(n_cells), ctypes.c_longlong(n_dp),
+        p(refkmer), ctypes.c_int(trim_len_edge),
+        ctypes.c_longlong(max_span), ctypes.c_int(n_threads), p(slots),
+        p(totals), p(upper), p(c0), p(stats),
+        ctypes.byref(out_k), ctypes.byref(out_c), ctypes.byref(out_r),
+    )
+    if nov < 0:
+        with _PILEUP_LOCK:
+            _SLOT_POOL.append(slots)
+        return None
+    try:
+        ovk = np.ctypeslib.as_array(out_k, shape=(nov,)).copy() if nov \
+            else np.empty(0, np.int64)
+        ovc = np.ctypeslib.as_array(out_c, shape=(nov,)).copy() if nov \
+            else np.empty(0, np.int64)
+        ovr = np.ctypeslib.as_array(out_r, shape=(nov,)).copy() if nov \
+            else np.empty(0, np.int64)
+    finally:
+        for ptr in (out_k, out_c, out_r):
+            if ptr:
+                lib.npt_cns_free(ptr)
+        with _PILEUP_LOCK:
+            _SLOT_POOL.append(slots)
+    return upper.reshape(7, n_dp), c0, totals, stats, (ovk, ovc, ovr)
+
+
+def cell_index(ridx, rpos, cigar, cigar_off, cigar_len, start: int,
+               end: int):
+    """Native insertion-slot discovery (pileup.cpp npt_cell_index).
+    Returns ins_len int64[end-start+1] or None when unavailable."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "npt_cell_index"):
+        return None
+    ridx = np.ascontiguousarray(ridx, dtype=np.int64)
+    rpos = np.ascontiguousarray(rpos, dtype=np.int32)
+    cigar = np.ascontiguousarray(cigar, dtype=np.uint32)
+    cigar_off = np.ascontiguousarray(cigar_off, dtype=np.int64)
+    cigar_len = np.ascontiguousarray(cigar_len, dtype=np.int32)
+    ins_len = np.zeros(end - start + 1, dtype=np.int64)
+
+    def p(a):
+        return a.ctypes.data_as(ctypes.c_void_p)
+
+    lib.npt_cell_index(p(ridx), ctypes.c_longlong(len(ridx)), p(rpos),
+                       p(cigar), p(cigar_off), p(cigar_len),
+                       ctypes.c_longlong(start), ctypes.c_longlong(end),
+                       p(ins_len))
+    return ins_len

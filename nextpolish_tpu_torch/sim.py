@@ -1,13 +1,16 @@
-"""Long-read polishing cases with alignments known by construction.
+"""Polishing cases with alignments known by construction: long reads
+(`simulate_case`) and paired-end short reads (`simulate_short_case`);
+and random sparse pileups for the chain DP alone (`random_pileup`).
 
 A random `truth` genome is drawn; the `draft` is the truth with
 substitutions only, so a read's exact alignment against the truth is also
 a valid alignment against the draft and no mapper is needed.  Reads are
 sampled from the truth with independent substitution, insertion and
-deletion rates per truth base; half of them are flagged as reverse
-strand (the BAM stores every read in reference orientation, so the flag
-is the only trace of the strand).  Everything is drawn from one numpy
-`default_rng(seed)`.
+deletion rates per truth base.  Long reads are flagged reverse strand
+half the time; short reads come in pairs, the first mate forward and the
+second reverse (the BAM stores every read in reference orientation, so
+the flag is the only trace of the strand).  Everything is drawn from one
+numpy `default_rng(seed)`.
 """
 from __future__ import annotations
 
@@ -31,13 +34,14 @@ class SimCase:
 
 
 def simulate_read(rng, truth: np.ndarray, start: int, length: int,
-                  sub: float, ins: float, dele: float):
+                  sub: float, ins: float, dele: float, r=None):
     """One read over truth[start:start+length].  Returns (seq uint8 ASCII,
     cigar uint32 BAM words).  The first and last truth bases always
-    match, so the CIGAR starts and ends with M."""
+    match, so the CIGAR starts and ends with M.  `r`, one uniform draw
+    per truth base, is drawn here unless given."""
     seg = truth[start:start + length]
     n = len(seg)
-    r = rng.random(n)
+    r = rng.random(n) if r is None else r.copy()
     r[0] = r[-1] = 1.0
     is_del = r < dele
     is_ins = (r >= dele) & (r < dele + ins)
@@ -113,6 +117,71 @@ def simulate_case(seed: int, n_contigs: int, contig_len, depth: float,
     return SimCase(names, truths, drafts, records)
 
 
+def _mutate(rng, truth: np.ndarray, rate: float) -> np.ndarray:
+    """truth with a substitution at each base with probability `rate`."""
+    out = truth.copy()
+    hit = rng.random(len(truth)) < rate
+    code = np.searchsorted(BASES, truth[hit])
+    out[hit] = BASES[(code + rng.integers(1, 4, len(code))) % 4]
+    return out
+
+
+def simulate_short_case(seed: int, contig_lens, depth: float,
+                        read_len: int = 150, insert=(350, 35),
+                        sub=0.01, ins=0.002, dele=0.002,
+                        draft_sub=0.005) -> SimCase:
+    """Paired-end short reads at `depth`x over contigs of `contig_lens`
+    bases.  Fragment lengths are normal (`insert` = mean, sd; cut to
+    [read_len, 2 * mean]); mate 1 reads the fragment's start forward,
+    mate 2 its end reverse, with flags 0x1|0x2|0x40|0x20 and
+    0x1|0x2|0x80|0x10 and tlen +/- the fragment length.  Per truth base a
+    read carries `sub` substitutions and `ins` / `dele` insertions /
+    deletions; reads drawn without an indel (most of them) are built in
+    bulk, the rest by simulate_read from the same per-base draws."""
+    rng = np.random.default_rng(seed)
+    names, truths, drafts, records = [], [], [], []
+    p_indel = ins + dele
+    for tid, L in enumerate(np.atleast_1d(contig_lens)):
+        L = int(L)
+        truth = rng.choice(BASES, L)
+        names.append(f"ctg{tid}")
+        truths.append(truth.tobytes())
+        drafts.append(_mutate(rng, truth, draft_sub).tobytes())
+        n_frag = int(round(depth * L / (2 * read_len)))
+        flen = np.clip(np.rint(rng.normal(insert[0], insert[1], n_frag)),
+                       read_len, min(2 * insert[0], L)).astype(np.int64)
+        fstart = rng.integers(0, L - flen + 1)
+        # mate 1 at the fragment's start, mate 2 at its end
+        starts = np.concatenate([fstart, fstart + flen - read_len])
+        mate = np.repeat([0, 1], n_frag)
+        frag = np.tile(np.arange(n_frag), 2)
+        r = rng.random((2 * n_frag, read_len))
+        r[:, 0] = r[:, -1] = 1.0
+        gapless = ~np.any(r < p_indel, axis=1)
+        codes = np.searchsorted(BASES, truth)[
+            starts[:, None] + np.arange(read_len)]
+        is_sub = (r >= p_indel) & (r < p_indel + sub)
+        codes = np.where(is_sub, (codes + rng.integers(1, 4, codes.shape))
+                         % 4, codes)
+        seq_g = BASES[codes]
+        cig_g = np.array([read_len << 4 | OP_M], dtype=np.uint32)
+        for k in range(2 * n_frag):
+            if gapless[k]:
+                seq, cigar = seq_g[k], cig_g
+            else:
+                seq, cigar = simulate_read(rng, truth, int(starts[k]),
+                                           read_len, sub, ins, dele, r=r[k])
+            m, f = int(mate[k]), int(frag[k])
+            records.append(dict(
+                name=f"p{tid}_{f}", tid=tid, pos=int(starts[k]), mapq=60,
+                flag=0x3 | (0x60 if m == 0 else 0x90), cigar=cigar,
+                seq_nib=bamio.seq_to_nib(seq.tobytes()), mtid=tid,
+                mpos=int(starts[k + n_frag if m == 0 else k - n_frag]),
+                tlen=int(flen[f]) if m == 0 else -int(flen[f])))
+    records.sort(key=lambda rec: (rec["tid"], rec["pos"]))
+    return SimCase(names, truths, drafts, records)
+
+
 def write_case(case: SimCase, outdir: str) -> tuple[str, str]:
     """Write genome.fa and the sorted, indexed reads.sort.bam; returns
     (fasta path, bam path)."""
@@ -126,3 +195,48 @@ def write_case(case: SimCase, outdir: str) -> tuple[str, str]:
                           [len(d) for d in case.drafts])
     bamio.write_bam(bam, hdr, case.records, index=True)
     return fa, bam
+
+
+def random_pileup(seed: int, n_dp: int, per: int, heavy_cells: int = 0,
+                  big_counts: bool = False, rolling: bool = False):
+    """A random sparse pileup for ops/chain.py: sorted cell*512+kmer keys
+    with `per` draws per cell, counts 1..49, per-cell first-observation
+    ranks in kmer order, totals 2..89.  `heavy_cells` cells get 24 more
+    draws (more distinct kmers than the planes hold: overflow entries),
+    `big_counts` pushes 60 counts past the 7-bit plane cap and every
+    total past 255 (escaped totals), `rolling` makes refkmer the rolling
+    3-mer stream of a random draft (observed first in its cell, as the
+    contig-as-read makes it) instead of the cell's first observed kmer.
+    Returns (uk int64, cn int64, rk uint16, refkmer int32, total int32),
+    the inputs of chain.pack_chain_planes."""
+    K3 = 512
+    rng = np.random.default_rng(seed)
+    cells = np.repeat(np.arange(n_dp, dtype=np.int64), per)
+    kmers = rng.integers(0, K3, per * n_dp)
+    if heavy_cells:
+        hv = rng.choice(n_dp, heavy_cells, replace=False)
+        cells = np.concatenate([cells, np.repeat(hv, 24)])
+        kmers = np.concatenate([kmers, rng.integers(0, K3, 24 * heavy_cells)])
+    if rolling:
+        sym = rng.integers(1, 6, n_dp)
+        prev1 = np.concatenate([[0], sym[:-1]])
+        prev2 = np.concatenate([[0, 0], sym[:-2]])
+        refkmer = ((prev2 << 6) | (prev1 << 3) | sym).astype(np.int32)
+        cells = np.concatenate([cells, np.arange(n_dp)])
+        kmers = np.concatenate([kmers, refkmer])
+    uk = np.unique(cells * K3 + kmers)
+    cn = rng.integers(1, 50, len(uk)).astype(np.int64)
+    ucell = uk // K3
+    first = np.searchsorted(ucell, ucell)  # each cell's first key
+    rk = np.arange(len(uk)) - first
+    if rolling:  # the draft kmer moves to rank 0
+        r_ref = rk[(uk % K3) == refkmer[ucell]][ucell]
+        rk = np.where(rk == r_ref, 0, rk + (rk < r_ref))
+    else:
+        refkmer = (uk[first[np.searchsorted(ucell, np.arange(n_dp))]]
+                   % K3).astype(np.int32)
+    total = rng.integers(2, 90, n_dp).astype(np.int32)
+    if big_counts:
+        cn[rng.choice(len(cn), 60, replace=False)] += 500
+        total = total + 600
+    return uk, cn, rk.astype(np.uint16), refkmer, total

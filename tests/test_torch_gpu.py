@@ -1,6 +1,8 @@
-"""Card-only tests of the port: the hand-written CUDA level-scan kernels
-(the chain and the winners) against their plain PyTorch versions, the
-pinned-buffer launch path, and worker2 --device cuda against --device cpu.
+"""Card-only tests of the port: the hand-written CUDA kernels against
+their plain PyTorch versions (the engine-2 level scan: the chain and the
+winners; task 1's chain DP: the forward scan and the traceback), the
+pinned-buffer launch paths, and worker2 / worker1 --device cuda against
+--device cpu.
 
 Every test here is marked `gpu` and skips without a card; whether a card
 is there is decided in a fixture, at run time.  The file imports nothing
@@ -19,6 +21,7 @@ from nextpolish_tpu_torch.io.bam import read_bam
 from nextpolish_tpu_torch.models.cns import device_dp as tdd
 from nextpolish_tpu_torch.models.cns import level_scan as tls
 from nextpolish_tpu_torch.models.cns.window import window_prep
+from nextpolish_tpu_torch.ops import chain as tch
 from torch_scan_cases import (
     max_level_entries,
     random_window,
@@ -181,6 +184,132 @@ def test_worker2_cuda_matches_cpu(tmp_path, cuda_device, monkeypatch):
     assert after[0] > before[0] and after[0] - before[0] == \
         after[1] - before[1]
     assert worker2.main(["-g", fa, "-l", bam, "-r", "ont", "-o",
+                         str(tmp_path / "cpu.fa"), "--device", "cpu"]) == 0
+    assert (tmp_path / "gpu.fa").read_bytes() == \
+        (tmp_path / "cpu.fa").read_bytes()
+
+
+# ---------------------------------------------------------------------------
+# task 1: the chain DP's kernels (ops/chain.py, csrc/chain_scan.cu)
+# ---------------------------------------------------------------------------
+
+def _chain_launches():
+    return (tch.forward_states.launches, tch.traceback_batch.launches)
+
+
+def _scan_inputs(seed, B, L, live, big=False):
+    """Random (max,+) scan inputs: half-integer matrices with NEG entries
+    (or, with `big`, magnitudes whose products pass 2^24), s0 with `live`
+    live states, pointer tables, and rows that are all padding (identity
+    matrices and maps) past a random n_dp, one row with n_dp = 0."""
+    rng = np.random.default_rng(seed)
+    if big:
+        A = (rng.integers(-1000, 1000, (B, L, 8, 8)) * 1000.5)
+    else:
+        A = rng.integers(-40, 40, (B, L, 8, 8)) * 0.5
+        A[rng.random(A.shape) < 0.3] = tch.NEG
+    A = A.astype(np.float32)
+    eye = np.full((8, 8), tch.NEG, np.float32)
+    np.fill_diagonal(eye, 0.0)
+    P = rng.integers(0, 8, (B, L, 8)).astype(np.int32)
+    n_dp = rng.integers(1, L + 1, B)
+    if B > 1:
+        n_dp[1] = 0
+    for b in range(B):
+        A[b, n_dp[b]:] = eye
+        P[b, n_dp[b]:] = np.arange(8)
+    s0 = np.full((B, 8), tch.NEG, np.float32)
+    for b in range(B):
+        s0[b, rng.permutation(8)[:live]] = 0.0
+    b_end = rng.integers(0, 8, B).astype(np.int32)
+    return A, s0, P, b_end
+
+
+def _hold_chain(dev, A, s0, P, b_end):
+    """Both chain kernels against their plain versions on the card: f bit
+    for bit, the choices byte for byte; one call is one launch."""
+    A, s0, P, b_end = (torch.from_numpy(x).to(dev) for x in (A, s0, P,
+                                                             b_end))
+    before = _chain_launches()
+    f = tch.forward_states(A, s0)
+    assert _chain_launches() == (before[0] + 1, before[1])
+    choice = tch.traceback_batch(P, b_end)
+    assert _chain_launches() == (before[0] + 1, before[1] + 1)
+    fp = tch.forward_states_plain(A, s0)
+    cp = tch.traceback_batch_plain(P, b_end)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(f.view(torch.int32), fp.view(torch.int32))
+    assert torch.equal(choice, cp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L", [(1, 128), (8, 128), (1, 1 << 15),
+                                 (8, 1 << 15)])
+@pytest.mark.parametrize("live", [1, 8])
+def test_chain_kernels_match_plain_on_card(cuda_device, B, L, live):
+    """L = 128 (one chunk, no tree) and 2^15 cells (256 chunks), one row
+    and eight rows in one launch, s0 with one and with eight live
+    states, rows all padding past n_dp."""
+    _hold_chain(cuda_device, *_scan_inputs(B * L + live, B, L, live))
+
+
+@pytest.mark.gpu
+def test_chain_forward_past_2_pow_24_on_card(cuda_device):
+    """Chunk products past 2^24 round: the kernel's association of the
+    products is the plain version's, so f stays bit-equal."""
+    _hold_chain(cuda_device, *_scan_inputs(24, 2, 128 * 64, 8, big=True))
+
+
+@pytest.mark.gpu
+def test_chain_kernels_refuse_bad_input(cuda_device):
+    """A length that is not 128 x a power of two, a wrong dtype and
+    tensors on two devices are refused before anything launches."""
+    A, s0, P, b_end = (torch.from_numpy(x).to(cuda_device)
+                       for x in _scan_inputs(3, 2, 384, 8))
+    before = _chain_launches()
+    with pytest.raises(ValueError):
+        tch.forward_states(A, s0)  # 3 chunks
+    with pytest.raises(ValueError):
+        tch.forward_states(A[:, :256].double(), s0)
+    with pytest.raises(ValueError):
+        tch.traceback_batch(P[:, :256].contiguous(), b_end.cpu())
+    with pytest.raises(ValueError):
+        tch.traceback_batch(P[:, :256].contiguous().long(), b_end)
+    assert _chain_launches() == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heavy,big,rolling", [(0, False, True),
+                                               (40, True, False)])
+def test_chain_dp_on_card_matches_cpu(cuda_device, heavy, big, rolling):
+    """The whole DP from one buffer (overflow entries and escaped totals
+    in the second case): result bytes on the card equal the CPU's."""
+    from nextpolish_tpu_torch import sim as tsim
+
+    uk, cn, rk, refkmer, total = tsim.random_pileup(9, 5000, 4, heavy, big,
+                                                    rolling)
+    buf, *shape = tch.pack_chain_planes(uk, cn, rk, refkmer, total, 5000,
+                                        0.5)
+    host = torch.from_numpy(buf.view(np.int16))
+    got = tch.chain_correct_planes(host.to(cuda_device), *shape)
+    want = tch.chain_correct_planes(host, *shape)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_worker1_cuda_matches_cpu(tmp_path, cuda_device):
+    """Task 1 on the card writes the CPU run's bytes, through both
+    kernels."""
+    from nextpolish_tpu_torch import worker1
+
+    case = sim.simulate_short_case(41, [30000, 8000], 30)
+    fa, bam = sim.write_case(case, str(tmp_path))
+    before = _chain_launches()
+    assert worker1.main(["-g", fa, "-s", bam, "-t", "1", "-o",
+                         str(tmp_path / "gpu.fa"), "--device", "cuda"]) == 0
+    after = _chain_launches()
+    assert after == (before[0] + 2, before[1] + 2)
+    assert worker1.main(["-g", fa, "-s", bam, "-t", "1", "-o",
                          str(tmp_path / "cpu.fa"), "--device", "cpu"]) == 0
     assert (tmp_path / "gpu.fa").read_bytes() == \
         (tmp_path / "cpu.fa").read_bytes()

@@ -1,6 +1,6 @@
 """The port stands alone: every module of nextpolish_tpu_torch imports,
-and the CPU slice runs end to end, with `jax` and `nextpolish_tpu` made
-unimportable in the process."""
+and the CPU slices (worker2, worker1 -t 1) run end to end, with `jax` and
+`nextpolish_tpu` made unimportable in the process."""
 import pathlib
 import re
 import subprocess
@@ -20,8 +20,9 @@ mods = sorted(
     for p in (root / "nextpolish_tpu_torch").rglob("*.py"))
 for m in mods:
     importlib.import_module(m.removesuffix(".__init__"))
-from nextpolish_tpu_torch import sim, worker2
+from nextpolish_tpu_torch import sim, worker1, worker2
 from nextpolish_tpu_torch.models.cns.level_scan import level_chain, level_winners
+from nextpolish_tpu_torch.ops.chain import forward_states, traceback_batch
 os.environ["NPT_CNS_ENGINE"] = "device"
 with tempfile.TemporaryDirectory() as d:
     case = sim.simulate_case(4, 1, 3000, 10, read_len=(1000, 2500))
@@ -31,7 +32,16 @@ with tempfile.TemporaryDirectory() as d:
                          "--device", "cpu"]) == 0
     lines = open(out, "rb").read().split(b"\n")
     assert lines[0].startswith(b">ctg0 ") and len(lines[1]) > 2900
+    case = sim.simulate_short_case(5, [3000, 1200], 20)
+    fa, bam = sim.write_case(case, os.path.join(d, "short"))
+    out = os.path.join(d, "short.fa")
+    assert worker1.main(["-g", fa, "-s", bam, "-t", "1", "-o", out,
+                         "--device", "cpu"]) == 0
+    lines = open(out, "rb").read().split(b"\n")
+    assert lines[0].startswith(b">ctg0 ") and len(lines[1]) > 2900
+    assert lines[2].startswith(b">ctg1 ") and len(lines[3]) > 1100
 assert level_chain.launches == 0 and level_winners.launches == 0
+assert forward_states.launches == 0 and traceback_batch.launches == 0
 assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items() if v is not None)
 print("OK", len(mods))
 '''
