@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (nextpolish_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 1] [--contigs 8] [--phases 1,2,3,4,5]
+    python3 chip_smoke.py [--seed 1] [--contigs 8] [--phases 1,2,3,4,5,6]
 
 Phases (any failed check exits non-zero; nothing is caught):
   1. build   the engine-2 level-scan kernels (nvcc, sm_90a: the chain and
@@ -49,17 +49,35 @@ Phases (any failed check exits non-zero; nothing is caught):
              result bytes through the plain versions on the card; then the
              differences to the truth before and after polishing, and each
              kernel's time on the largest launch beside its plain version
-             and its bounds.
+             and its bounds;
+  6. main    on phase 5's BAM and output (it writes no BAM): (a) the
+             chromosome alone through task 1's window route, forced
+             in-process by lowering the single-launch cap to 2^20 cells
+             (2^19-cell windows, about 9): its FASTA byte-equal to phase
+             5's single launch, every window's scans equal to their plain
+             versions, the windows, their device time, the host walk time
+             and the peak device memory; (b) worker1 -t 2 --device cuda on
+             phase 5's polished FASTA, as task=default chains the two
+             tasks: every planes launch and every no-depth rescue batch,
+             recorded on the way, equal to its plain re-run on the card
+             (random rescue problems, R = 64 and Lb up to 1,024, stand in
+             when the run has no rescue batch, and the phase says so); the
+             no-depth regions, the launches, the wall, bases/s, and the
+             differences to the truth after task 2 beside those after
+             task 1.
 
 Phase 3's number of contigs (--contigs) is the only cut: contig length,
-depth and error rates are fixed; phase 5 is not cut.  --phases runs a
-subset (the build always runs).
+depth and error rates are fixed; phases 5 and 6 are not cut (phase 6(a)
+lowers the launch cap, not the contig: a contig past the real cap needs
+about 10 M reads, which this script's time limit cannot simulate).
+--phases runs a subset (the build always runs; 6 needs 5).
 
 The last three lines are the kernels' JSON record (the level scan's two
-kernels, one port of the TPU kernel, and task 1's two chain kernels), the
-card's name and power limit, and {"ok": true, "device": {...}}.  The
-script imports nothing of JAX or of the JAX package, and exits non-zero
-without a result when no CUDA device is usable.
+kernels, one port of the TPU kernel, and task 1's two chain kernels, with
+their launches on each path), the card's name and power limit, and
+{"ok": true, "device": {...}}.  The script imports nothing of JAX or of
+the JAX package, and exits non-zero without a result when no CUDA device
+is usable.
 """
 from __future__ import annotations
 
@@ -808,7 +826,7 @@ def chain_bounds(B: int, L: int, step_cycles: int, mhz: float) -> dict:
     return out, depth * step_cycles / (mhz * 1e6) * 1e3
 
 
-def task1_main_path(tmp, dev, args):
+def task1_main_path(tmp, dev, args, ctx):
     import numpy as np
     import torch
 
@@ -845,15 +863,13 @@ def task1_main_path(tmp, dev, args):
         with capture_scans(keep="largest") as cap:
             trace.reset("task1")
             torch.cuda.reset_peak_memory_stats(dev)
-            tch.forward_states.launches = 0
-            tch.traceback_batch.launches = 0
+            zero_chain_launches()
             t0 = time.perf_counter()
             rc = worker1.main(["-g", fa, "-s", bam, "-t", "1", "-o", out,
                                "--device", "cuda"])
             torch.cuda.synchronize(dev)
             wall = time.perf_counter() - t0
-            launches = {"chain_forward": tch.forward_states.launches,
-                        "chain_traceback": tch.traceback_batch.launches}
+            launches = chain_launches()
             snap = trace.snapshot("task1")
             peak = torch.cuda.max_memory_allocated(dev)
     finally:
@@ -883,10 +899,13 @@ def task1_main_path(tmp, dev, args):
         f"{k} {got(k):.3f}" for k in (
             "task1.host", "task1.fetch", "task1.walk", "task1.pack",
             "task1.dispatch", "task1.wait")))
+    ctx.update(fa=fa, bam=bam, out=out, polished=polished, case=case,
+               launches=launches, diffs={}, seed=args.seed)
     for name, truth, draft in zip(case.names, case.truths, case.drafts):
         check(name in polished, f"{name} missing from the output")
         before = differences(truth, draft)
         after = differences(truth, polished[name])
+        ctx["diffs"][name] = after
         log(f"task1: {name} ({len(truth)} bp): differences to the truth "
             f"{before} in the draft, {after} after polishing "
             f"(lowercase {sum(1 for c in polished[name] if c >= 97)})")
@@ -932,14 +951,200 @@ def task1_main_path(tmp, dev, args):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase 6: task 1's window route and task 2, on phase 5's BAM and output
+# ---------------------------------------------------------------------------
+
+WINDOW_CAP_CELLS = 1 << 20  # phase 6(a)'s lowered single-launch cap
+
+
+def chain_launches():
+    from nextpolish_tpu_torch.ops import chain as tch
+
+    return {"chain_forward": tch.forward_states.launches,
+            "chain_traceback": tch.traceback_batch.launches}
+
+
+def zero_chain_launches():
+    from nextpolish_tpu_torch.ops import chain as tch
+
+    tch.forward_states.launches = 0
+    tch.traceback_batch.launches = 0
+
+
+def task1_windowed(tmp, dev, ctx):
+    """Phase 6(a): the chromosome alone through the window route; returns
+    the kernel launches of that run."""
+    import torch
+
+    from nextpolish_tpu_torch import worker1
+    from nextpolish_tpu_torch.models import score_chain as sc
+    from nextpolish_tpu_torch.runtime import trace
+
+    case = ctx["case"]
+    name, draft = case.names[0], case.drafts[0]
+    one_fa = os.path.join(tmp, "task1", "chrom.fa")
+    with open(one_fa, "wb") as fh:
+        fh.write(b">" + name.encode() + b"\n" + draft + b"\n")
+    out = os.path.join(tmp, "task1", "windowed.fa")
+    cap = sc.MAX_LAUNCH_CELLS
+    sc.MAX_LAUNCH_CELLS = WINDOW_CAP_CELLS
+    try:
+        with capture_scans() as cap_scans:
+            trace.reset("task1")
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_chain_launches()
+            t0 = time.perf_counter()
+            rc = worker1.main(["-g", one_fa, "-s", ctx["bam"], "-t", "1",
+                               "-o", out, "--device", "cuda"])
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            launches = chain_launches()
+            snap = trace.snapshot("task1")
+            peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        sc.MAX_LAUNCH_CELLS = cap
+    check(rc == 0, f"worker1 -t 1 (window route) returned {rc}")
+    for k, n in launches.items():
+        check(n > 0, f"the window route launched {k} no time")
+
+    def got(key, field="s"):
+        return snap.get(key, {}).get(field, 0)
+
+    n_win = int(got("task1.windows"))
+    check(n_win >= 3, f"the chromosome ran in {n_win} windows, not >= 3")
+    check(launches == {"chain_forward": n_win, "chain_traceback": n_win},
+          f"window route launches {launches} for {n_win} windows")
+    seq = open(out, "rb").read().split(b"\n")[1]
+    same = seq == ctx["polished"][name]
+    log(f"task1 windowed: {name} ({len(draft)} bp) in {n_win} windows of "
+        f"{sc.SHARD_WINDOW_CELLS} cells (single-launch cap lowered to "
+        f"{WINDOW_CAP_CELLS} cells): FASTA "
+        f"{'byte-equal' if same else 'DIFFERENT'} to phase 5's single "
+        f"launch")
+    check(same, "the window route's FASTA differs from the single launch's")
+    win_s = got("task1.window_kernel")
+    log(f"task1 windowed: wall {wall:.2f} s, {len(seq) / wall:.0f} bases/s; "
+        f"kernel launches {launches}; device time per window (CUDA events "
+        f"around its forward and traceback halves) {win_s / n_win * 1e3:.2f}"
+        f" ms, {win_s * 1e3:.1f} ms over {n_win} windows; host walk "
+        f"(task1.walk: cell index + sparse native walk) "
+        f"{got('task1.walk'):.3f} s, region fetch {got('task1.fetch'):.3f} "
+        f"s; max_memory_allocated {peak} B")
+    hold_scans(cap_scans, dev, "window route")
+    log(f"task1 windowed: {len(cap_scans.fwd)} forward and "
+        f"{len(cap_scans.tb)} traceback scans equal to their plain versions")
+    return launches
+
+
+def task2_main_path(tmp, dev, ctx):
+    """Phase 6(b): worker1 -t 2 --device cuda on phase 5's polished FASTA;
+    returns the kernel launches of that run."""
+    import numpy as np
+    import torch
+
+    from nextpolish_tpu_torch import worker1
+    from nextpolish_tpu_torch.models import score_chain as sc
+    from nextpolish_tpu_torch.ops import chain as tch
+    from nextpolish_tpu_torch.runtime import trace
+
+    case = ctx["case"]
+    planes, rescues = [], []
+    planes_fn, rescue_fn = tch.chain_correct_planes_batch, sc.run_chain_batch
+
+    def rec_planes(bufs, *key, **kw):
+        out = planes_fn(bufs, *key, **kw)
+        planes.append((bufs, key, out))
+        return out
+
+    def rec_rescue(problems, rate, *a, **kw):
+        out = rescue_fn(problems, rate, *a, **kw)
+        if problems:
+            rescues.append((problems, rate, out))
+        return out
+
+    out = os.path.join(tmp, "task1", "task2.fa")
+    tch.chain_correct_planes_batch = rec_planes
+    sc.run_chain_batch = rec_rescue
+    try:
+        trace.reset("task1")
+        zero_chain_launches()
+        t0 = time.perf_counter()
+        rc = worker1.main(["-g", ctx["out"], "-s", ctx["bam"], "-t", "2",
+                           "-o", out, "--device", "cuda"])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = chain_launches()
+    finally:
+        tch.chain_correct_planes_batch = planes_fn
+        sc.run_chain_batch = rescue_fn
+    check(rc == 0, f"worker1 -t 2 --device cuda returned {rc}")
+    fasta = open(out, "rb").read().split(b"\n")
+    polished = dict(zip((h[1:].split(b" ")[0].decode() for h in fasta[0::2]),
+                        fasta[1::2]))
+    n_pol = sum(len(v) for v in polished.values())
+    shapes = [(len(p), max(c.shape[0] for c, *_ in p)) for p, _, _ in
+              rescues]
+    log(f"task2: worker1 -t 2 wall {wall:.2f} s, {n_pol} bases, "
+        f"{n_pol / wall:.0f} bases/s; no-depth regions (one planes launch "
+        f"each) {len(planes)}, rescue batches {len(rescues)} (regions, "
+        f"longest) {shapes}; kernel launches {launches}")
+    check(len(planes) > 0, "task 2 made no planes launch (no no-depth "
+          "region in phase 5's output)")
+    for k, n in launches.items():
+        check(n > 0, f"the task-2 main path launched {k} no time")
+    for name, truth in zip(case.names, case.truths):
+        check(name in polished, f"{name} missing from task 2's output")
+        after2 = differences(truth, polished[name])
+        log(f"task2: {name} ({len(truth)} bp): differences to the truth "
+            f"{ctx['diffs'][name]} after task 1, {after2} after task 2 "
+            f"(lowercase {sum(1 for c in polished[name] if c >= 97)})")
+
+    # every launch again through the plain versions on the card
+    for bufs, key, got in planes:
+        want = tch.chain_correct_planes_batch(bufs, *key, plain=True)
+        check(torch.equal(want, got),
+              f"task-2 planes launch (L={key[0]}) differs from the plain "
+              "versions")
+    log(f"task2: {len(planes)} planes launches byte-equal through the "
+        "plain versions")
+    if not rescues:
+        rng = np.random.default_rng(ctx["seed"])
+        probs = []
+        for n in rng.integers(1, 1025, 64):
+            counts = np.zeros((n, 512), dtype=np.uint16)
+            refk = rng.integers(0, 512, n).astype(np.int32)
+            counts[np.arange(n), refk] = rng.integers(1, 40, n)
+            extra = rng.integers(0, 512, (n, 2))
+            counts[np.arange(n)[:, None], extra] += rng.integers(
+                0, 5, (n, 2)).astype(np.uint16)
+            total = counts.astype(np.int64).sum(axis=1).astype(np.int32)
+            probs.append((counts, refk, total, None))
+        rescues.append((probs, 0.5,
+                        tch.run_chain_batch(probs, 0.5, device=dev)))
+        log("task2: the run made no rescue batch; random rescue problems "
+            f"(R = 64, Lb up to {max(p[0].shape[0] for p in probs)}) stand "
+            "in for the check")
+    for problems, rate, got in rescues:
+        want = tch.run_chain_batch(problems, rate, device=dev, plain=True)
+        check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+              f"a rescue batch of {len(problems)} regions differs from the "
+              "plain versions")
+    log(f"task2: {len(rescues)} rescue batches byte-equal through the "
+        "plain versions")
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--contigs", type=int, default=8)
-    p.add_argument("--phases", default="1,2,3,4,5",
-                   help="phases to run (the build always runs)")
+    p.add_argument("--phases", default="1,2,3,4,5,6",
+                   help="phases to run (the build always runs; 6 needs 5)")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
+    if 6 in phases and 5 not in phases:
+        fail("phase 6 runs on phase 5's BAM and output: add 5 to --phases")
 
     # the port must run with JAX and the JAX package out of reach
     sys.modules["jax"] = None
@@ -972,8 +1177,22 @@ def main(argv=None) -> int:
             log(f"check task1: all equal ({time.perf_counter() - t0:.1f} s)")
         if 5 in phases:
             t0 = time.perf_counter()
-            recs += task1_main_path(tmp, dev, args)
+            ctx = {}
+            chain_recs = task1_main_path(tmp, dev, args, ctx)
+            recs += chain_recs
             log(f"task1: phase 5 took {time.perf_counter() - t0:.1f} s")
+        if 6 in phases:
+            t0 = time.perf_counter()
+            by_path = {"worker1 -t 1": ctx["launches"],
+                       "worker1 -t 1, window route": task1_windowed(
+                           tmp, dev, ctx),
+                       "worker1 -t 2": task2_main_path(tmp, dev, ctx)}
+            for rec in chain_recs:
+                k = rec["name"]
+                rec["launches_by_path"] = {p: n[k] for p, n in
+                                           by_path.items()}
+                rec["launches"] = sum(n[k] for n in by_path.values())
+            log(f"phase 6 took {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -16,13 +16,25 @@ Device half, on tensors of an explicit device:
                          the whole DP: packed [B, L] int8 result bytes,
                          choice | FLAG_ZERO << 3 | FLAG_COVERAGE << 4
 
+The dense chain over [B, L, 512] pileups (task 2's no-depth rescue and
+the window route of models/score_chain.py, through parallel/shard.py):
+  emission, build_transition, pointers
+                         tropical.emission / build_transition / _pointers
+  chain_correct_batch    tropical._chain_core + chain_correct_batch: the
+                         choices [B, L] int8, no flag bits
+  chain_pointers         the forward half of _chain_core (emission to
+                         pointers), which parallel/shard.py shares
+  run_chain_batch, dispatch_chain_sparse
+                         the host wrappers (dispatch_chain_sparse takes the
+                         planes path; the entries path is not ported)
+
 forward_states and traceback_batch are the two hand-written CUDA kernels
 of csrc/chain_scan.cu (`chain_forward`, `chain_traceback`).  Each wrapper
 runs its kernel on CUDA tensors and its plain PyTorch version on CPU
 tensors, nothing else: on a card the kernel runs or the call raises.
 `forward_states.launches` / `traceback_batch.launches` count kernel
-launches.  The decode and the lattice/pointer steps are PyTorch ops on
-the device, as the JAX package left them to XLA.
+launches.  The decode, the lattice, the emission and the pointer steps
+are PyTorch ops on the device, as the JAX package left them to XLA.
 
 Exactness: every f32 value equals the JAX package's.  Additions are
 single roundings and max is order-free, so what fixes the bits is the
@@ -34,9 +46,9 @@ scatter-max over the <= 8 slots instead of JAX's [B, Emax, L, 64]
 one-hot tensor (max is order-free, so the values are the same).
 
 Not ported: the entries path (chain_correct_packed*, pack_chain_sparse,
-_chain_entries_core), the dense per-region variant (chain_correct_batch,
-run_chain_batch: the task-2 no-depth rescue, a later slice) and
-start_host_copy.
+_chain_entries_core, NPT_CHAIN_IMPL=entries), the single dense
+chain_correct, run_chain, run_chain_sparse and init_state_sparse (no
+caller in the port yet) and start_host_copy.
 """
 from __future__ import annotations
 
@@ -47,7 +59,8 @@ import threading
 import numpy as np
 import torch
 
-from ..runtime import nvcc
+from ..device import resolve_device
+from ..runtime import nvcc, trace
 from .symbols import K3, S
 
 # a numpy scalar, as in tropical.py
@@ -270,6 +283,17 @@ def init_state(counts0: np.ndarray) -> np.ndarray:
     prefixes = np.flatnonzero(counts0.reshape(S, S, S).sum(axis=(0, 2)))
     s0[prefixes] = 0.0
     return s0
+
+
+def _index_order_ranks(nz: np.ndarray) -> np.ndarray:
+    """Ranks by kmer index within each cell (fallback when no observation
+    order exists, e.g. synthetic tests)."""
+    cell = nz // K3
+    first = np.concatenate([[0], np.flatnonzero(np.diff(cell)) + 1])
+    seg = np.zeros(len(nz), dtype=np.int64)
+    seg[first] = 1
+    segid = np.cumsum(seg) - 1
+    return (np.arange(len(nz)) - first[segid]).astype(np.uint16)
 
 
 def _pow2(n: int) -> int:
@@ -837,3 +861,185 @@ def chain_correct_planes(buf: torch.Tensor, L, Emax, EOV, ET, FMT, TH,
     """Single-contig slot-plane chain DP (one row of the batch)."""
     return chain_correct_planes_batch(buf[None], L, Emax, EOV, ET, FMT, TH,
                                       PS, chunk)[0]
+
+
+# ---------------------------------------------------------------------------
+# the dense chain (tropical.emission, build_transition, _pointers,
+# _chain_core / chain_correct_batch): [B, L, 512] tensors, one row per
+# region or window, PyTorch ops around the two scan kernels
+# ---------------------------------------------------------------------------
+
+def emission(counts: torch.Tensor, refkmer: torch.Tensor,
+             total: torch.Tensor, rate) -> torch.Tensor:
+    """Per-cell per-kmer emission scores em [B, L, 512] f32, NEG where
+    unobserved (contig_calculate_score's adjustments, lib/contig.c:424-453):
+    the draft's own kmer is decremented when the cell has real coverage,
+    and the per-cell normalizer uses total-1 when total > 1.  counts
+    [B, L, 512] and refkmer/total [B, L] of any integer dtype; rate a
+    float, rounded to f32 once (a 0-dim CPU tensor mixes with tensors of
+    any device).  The same f32 operations as the JAX function: the
+    decrement added as -dec, then adj - tot1*rate as one multiply and one
+    subtract."""
+    f32 = torch.float32
+    cnt = counts.to(f32)
+    dec = (total > 1).to(f32)
+    adj = cnt.scatter_add(2, refkmer.long()[..., None], -dec[..., None])
+    tot1 = torch.where(total > 1, total - 1, total).to(f32)
+    rate = torch.tensor(np.float32(rate))
+    return torch.where(counts > 0, adj - tot1[..., None] * rate, float(NEG))
+
+
+def build_transition(em: torch.Tensor) -> torch.Tensor:
+    """Augmented transition matrices A [B, L, 8, 8] from em [B, L, 512]:
+    the max over the first base, column 0 set to the row max."""
+    B, L = em.shape[:2]
+    M = em.reshape(B, L, S, S, S).amax(dim=2)  # [B, L, b2, b3]
+    M[..., 0] = M.amax(dim=3)
+    return M
+
+
+def pointers(em: torch.Tensor, rank: torch.Tensor, fprev: torch.Tensor,
+             valid: torch.Tensor):
+    """Per-cell predecessor table + base_max_score selection
+    (tropical._pointers, rows batched): em [B, L, 512] f32, rank
+    [B, L, 512] int32 (first-observation rank; any value where
+    unobserved), fprev [B, L, 8] f32 (the state before each cell), valid
+    [B, L] bool.  Returns (P [B, L, 8] int32 — predecessor base at cell
+    c-1 given base b at cell c; msel [B, L] int32 — base_max_score's pick
+    at each cell, ties by min insertion rank).  torch.argmin returns the
+    first minimum, as jnp.argmin does."""
+    B, L = em.shape[:2]
+    dev = em.device
+    i32 = torch.int32
+    neg, big = float(NEG), int(RANK_BIG)
+    emr = em.reshape(B, L, S * S, S)
+    obsr = emr > float(NEG * np.float32(0.5))
+    pref_b2 = torch.arange(S * S, device=dev) % S
+    gath = fprev[:, :, pref_b2]  # [B, L, 64]; fprev[..., 0] = running max
+    sc = torch.where(obsr, gath[..., None] + emr, neg)
+    V = sc.amax(dim=2)  # [B, L, S] per-base best score
+    rkr = torch.where(obsr, rank.reshape(B, L, S * S, S).to(i32), big)
+    # winning kmer per (cell, base): strictly-greater replacement in data
+    # order keeps the min-rank kmer among score winners (base_add_score)
+    winner = (sc == V[:, :, None, :]) & obsr
+    del sc
+    wp = torch.argmin(torch.where(winner, rkr, big), dim=2)
+    del winner
+    wb2 = (wp % S).to(i32)
+    Rm = rkr.amin(dim=2)  # [B, L, S] score-list insertion rank per base
+    del rkr
+    lane_obs = obsr.any(dim=2)
+    # base_max_score: first maximum in insertion order (lib/base.c:185-197)
+    Vmax = torch.where(lane_obs, V, neg).amax(dim=2)
+    cand = (V == Vmax[..., None]) & lane_obs
+    msel = torch.argmin(torch.where(cand, Rm, big), dim=2).to(i32)
+    msel_prev = torch.cat([torch.zeros((B, 1), dtype=i32, device=dev),
+                           msel[:, :-1]], dim=1)
+    P = torch.where(wb2 != 0, wb2, msel_prev[..., None])
+    iota = torch.arange(S, dtype=i32, device=dev)
+    return torch.where(valid[..., None], P, iota), msel
+
+
+def chain_pointers(counts, rank, refkmer, total, valid, rate, s0,
+                   chunk: int = CHUNK, plain: bool = False):
+    """The forward half of the dense chain DP over B independent rows
+    (tropical._chain_core up to its traceback; every row keeps its own scan
+    axis and s0): counts/rank [B, L, 512] (int; rank 0xFFFF where
+    unobserved), refkmer/total [B, L] int32, valid [B, L] bool, s0 [B, 8]
+    f32, all on the device that runs the DP, L = 128 x a power of two.
+    Runs the emission, the transitions (identity where not valid), the
+    forward scan and the pointers; returns (f [B, L, 8] f32, the state
+    after each cell; P [B, L, 8] int32; msel [B, L] int32).  `plain` runs
+    the scan's plain version on any device (a card's check of the
+    kernel)."""
+    em = emission(counts, refkmer, total, rate)
+    A = build_transition(em)
+    A = torch.where(valid[..., None, None], A, _eye(em.device))
+    s0 = s0.to(torch.float32).contiguous()
+    f = (forward_states_plain if plain else forward_states)(
+        A.contiguous(), s0, chunk)
+    del A
+    fprev = torch.cat([s0[:, None], f[:, :-1]], dim=1)
+    P, msel = pointers(em, rank, fprev, valid)
+    return f, P, msel
+
+
+def chain_correct_batch(counts, rank, refkmer, total, valid, rate, s0,
+                        chunk: int = CHUNK,
+                        plain: bool = False) -> torch.Tensor:
+    """The dense chain DP over B independent regions (tropical._chain_core
+    under chain_correct_batch's vmap), chain_pointers' inputs: the choices
+    [B, L] int8 (the running best score JAX's core also returns is unused
+    by its callers and not computed).  `plain` runs both scans' plain
+    versions on any device (a card's check of the kernels)."""
+    _, P, msel = chain_pointers(counts, rank, refkmer, total, valid, rate,
+                                s0, chunk, plain)
+    lastidx = torch.clamp_min(valid.sum(dim=1) - 1, 0)
+    b_end = torch.gather(msel, 1, lastidx[:, None])[:, 0].contiguous()
+    return (traceback_batch_plain if plain else traceback_batch)(
+        P.contiguous(), b_end, chunk)
+
+
+def _u16(a: np.ndarray, device) -> torch.Tensor:
+    """A uint16 array on `device` as int32 values 0..0xFFFF (moved as
+    16-bit words)."""
+    t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).to(device)
+    return t.to(torch.int32) & 0xFFFF
+
+
+def run_chain_batch(problems, rate, chunk: int = CHUNK, device=None,
+                    plain: bool = False) -> list:
+    """Run many small regions in one launch.  problems = list of
+    (counts[n,K3] uint16, refkmer[n], total[n], rank[n,K3] uint16);
+    returns list of choice[n] (numpy int8).  The DP runs on `device`
+    (default cuda); `plain` runs the scans' plain versions there."""
+    if not problems:
+        return []
+    dev = resolve_device(device)
+    R = _pow2(len(problems))
+    Lb = pad_to_chunk(max(c.shape[0] for c, *_ in problems), chunk)
+    counts = np.zeros((R, Lb, K3), dtype=np.uint16)
+    ranks = np.full((R, Lb, K3), 0xFFFF, dtype=np.uint16)
+    rk = np.zeros((R, Lb), dtype=np.int32)
+    tt = np.zeros((R, Lb), dtype=np.int32)
+    vv = np.zeros((R, Lb), dtype=bool)
+    s0 = np.full((R, S), float(NEG), dtype=np.float32)
+    s0[:, 0] = 0.0
+    for i, prob in enumerate(problems):
+        c, r, t = prob[0], prob[1], prob[2]
+        n = c.shape[0]
+        counts[i, :n] = c
+        if len(prob) > 3 and prob[3] is not None:
+            ranks[i, :n] = prob[3]
+        else:
+            flat = c.reshape(-1)
+            nz = np.flatnonzero(flat)
+            ranks[i, :n].reshape(-1)[nz] = _index_order_ranks(nz)
+        rk[i, :n] = r[:n]
+        tt[i, :n] = t[:n]
+        vv[i, :n] = True
+        s0[i] = init_state(c[0])
+    out = chain_correct_batch(
+        _u16(counts, dev), _u16(ranks, dev), torch.from_numpy(rk).to(dev),
+        torch.from_numpy(tt).to(dev), torch.from_numpy(vv).to(dev),
+        float(rate), torch.from_numpy(s0).to(dev), chunk, plain)
+    out = out.cpu().numpy()
+    return [out[i, : p[0].shape[0]] for i, p in enumerate(problems)]
+
+
+def dispatch_chain_sparse(uk_in: np.ndarray, cn_in: np.ndarray,
+                          rk_in: np.ndarray, refkmer: np.ndarray,
+                          total: np.ndarray, n_dp: int, rate: float,
+                          cov_ratio: float = 0.8, chunk: int = CHUNK,
+                          device=None) -> torch.Tensor:
+    """Launch the chain DP on `device` (default cuda) and return the
+    packed per-cell result byte (choice | FLAG_ZERO << 3 | FLAG_COVERAGE
+    << 4) as a tensor there, without waiting for it: the planes buffer
+    (pack_chain_planes) through chain_correct_planes."""
+    dev = resolve_device(device)
+    trace.count("task1.chain_cells", pad_to_chunk(max(n_dp, 1), chunk))
+    trace.count("task1.chain_launches", 1)
+    buf, *shape = pack_chain_planes(
+        uk_in, cn_in, rk_in, refkmer, total, n_dp, rate, cov_ratio, chunk)
+    host = torch.from_numpy(buf.view(np.int16))
+    return chain_correct_planes(host.to(dev), *shape, chunk=chunk)

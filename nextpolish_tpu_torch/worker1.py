@@ -5,11 +5,12 @@ Bring-your-own-BAM workflow (doc/TUTORIAL.rst:50-82):
 
     python -m nextpolish_tpu_torch.worker1 -g genome.fa -s sgs.sort.bam \
         -t 1 -o genome.polishtemp.fa [--device cuda|cpu]
+    # then re-map against the temp output and run -t 2
 
-Task 1 (score_chain) is ported; tasks 2-5 (kmer_count, snp_phase,
-snp_valid, legacy lgspolish) exit non-zero (ROADMAP A4).  --device picks
-where the chain DP runs (default cuda; cuda without a usable card
-raises).  Output records are `>name len\\nseq` like the reference worker;
+Tasks 1 (score_chain) and 2 (kmer_count) are ported; tasks 3-5
+(snp_phase, snp_valid, legacy lgspolish) exit non-zero (ROADMAP A4).
+--device picks where the chain DPs run (default cuda; cuda without a
+usable card raises).  Output records are `>name len\\nseq` like the reference worker;
 resume skips contigs already present in -o.  The flags are the JAX
 worker's.
 """
@@ -23,6 +24,7 @@ from .device import resolve_device
 from .io.bam import read_bam
 from .io.fasta import FastaIndex
 from .kit import plog
+from .models.kmer_count import kmer_count_contig
 from .models.score_chain import (
     AlgoConfig,
     estimate_read_tlen,
@@ -36,7 +38,7 @@ log = plog()
 def build_argparser():
     p = argparse.ArgumentParser(
         prog="nextpolish_tpu_torch.worker1",
-        description="Polish a genome with short reads (task 1).",
+        description="Polish a genome with short reads (tasks 1-2).",
     )
     p.add_argument("-g", "--genome", required=True)
     p.add_argument("-s", "--bam_sgs", help="sorted BAM of short reads")
@@ -53,7 +55,7 @@ def build_argparser():
                    help="accepted for CLI parity; device batching replaces "
                         "process pools")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="device of the chain DP (default: cuda)")
+                   help="device of the chain DPs (default: cuda)")
     # algorithm thresholds (same flags as the reference worker)
     a = p.add_argument_group("algorithm")
     a.add_argument("-min_map_quality", type=int, default=0)
@@ -91,11 +93,21 @@ def open_contig_source(path):
     return read_bam(path) if path else None
 
 
+def per_contig(src, name, seqlen):
+    """Resolve a BAM source to this contig's AlnBatch.  IndexedBam
+    streams per region (htslib bam_itr_queryi role); an in-memory
+    AlnBatch passes through — task 2 expects column arrays
+    (batch.flag/tlen/mapq), not a streaming handle."""
+    if src is not None and hasattr(src, "fetch"):
+        return src.fetch(src.header.name2id(name), 0, max(seqlen - 1, 0))
+    return src
+
+
 def main(argv=None):
     args, _ = build_argparser().parse_known_args(argv)
-    if args.task != 1:
+    if args.task not in (1, 2):
         log.critical("task %d is not ported to nextpolish_tpu_torch yet "
-                     "(ROADMAP A4: tasks 2/3/4 and legacy 5); run "
+                     "(ROADMAP A4: task 3, task 4 and legacy 5); run "
                      "nextpolish_tpu.worker1 for it", args.task)
     device = resolve_device(args.device)
     cfg = AlgoConfig(
@@ -125,7 +137,7 @@ def main(argv=None):
         cfg.trace_sink = []
     genome = FastaIndex(args.genome)
     if not args.bam_sgs:
-        log.critical("-s/--bam_sgs is required for task 1")
+        log.critical("-s/--bam_sgs is required for tasks 1-2")
     sgs = open_contig_source(args.bam_sgs)
     head = sgs.fetch_head(10_000) if hasattr(sgs, "fetch_head") else sgs
     cfg.read_tlen = estimate_read_tlen(head, cfg)
@@ -142,8 +154,14 @@ def main(argv=None):
             log.warning("Skip polished seq: %s", name)
             continue
         todo.append(name)
-    results = score_chain_pipeline(
-        ((n, genome.fetch(n).seq) for n in todo), sgs, cfg, device=device)
+    if args.task == 1:
+        results = score_chain_pipeline(
+            ((n, genome.fetch(n).seq) for n in todo), sgs, cfg,
+            device=device)
+    else:
+        results = ((n, kmer_count_contig(n, s, per_contig(sgs, n, len(s)),
+                                         cfg, device))
+                   for n, s in ((n, genome.fetch(n).seq) for n in todo))
     for name, seq in results:
         if args.uppercase:
             seq = seq.upper()

@@ -1,8 +1,9 @@
 """Card-only tests of the port: the hand-written CUDA kernels against
 their plain PyTorch versions (the engine-2 level scan: the chain and the
 winners; task 1's chain DP: the forward scan and the traceback), the
-pinned-buffer launch paths, and worker2 / worker1 --device cuda against
---device cpu.
+pinned-buffer launch paths, the dense chain batch (task 2's no-depth
+rescue), task 1's window route against its single launch, and worker2 /
+worker1 -t 1 / worker1 -t 2 --device cuda against --device cpu.
 
 Every test here is marked `gpu` and skips without a card; whether a card
 is there is decided in a fixture, at run time.  The file imports nothing
@@ -310,6 +311,93 @@ def test_worker1_cuda_matches_cpu(tmp_path, cuda_device):
     after = _chain_launches()
     assert after == (before[0] + 2, before[1] + 2)
     assert worker1.main(["-g", fa, "-s", bam, "-t", "1", "-o",
+                         str(tmp_path / "cpu.fa"), "--device", "cpu"]) == 0
+    assert (tmp_path / "gpu.fa").read_bytes() == \
+        (tmp_path / "cpu.fa").read_bytes()
+
+
+def _dense_problems(seed, ns):
+    """Random dense chain problems (counts [n, 512] u16 with the draft kmer
+    and a few others per cell, refkmer, totals, first-observation ranks)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in ns:
+        counts = np.zeros((n, 512), dtype=np.uint16)
+        rank = np.full((n, 512), 0xFFFF, dtype=np.uint16)
+        refk = rng.integers(0, 512, n).astype(np.int32)
+        for c in range(n):
+            ks = list(dict.fromkeys([int(refk[c])] + [
+                int(k) for k in rng.integers(0, 512, int(rng.integers(0, 5)))]))
+            for r, k in enumerate(ks):
+                counts[c, k] = int(rng.integers(1, 40))
+                rank[c, k] = r
+        total = counts.astype(np.int64).sum(axis=1).astype(np.int32)
+        out.append((counts, refk, total, rank))
+    return out
+
+
+@pytest.mark.gpu
+def test_dense_chain_batch_on_card_matches_plain(cuda_device):
+    """run_chain_batch on the card (both kernels, one launch each) against
+    its plain versions on the card and against the CPU."""
+    problems = _dense_problems(5, [700, 33, 129, 1000, 256])
+    before = _chain_launches()
+    got = tch.run_chain_batch(problems, 0.5, device=cuda_device)
+    assert _chain_launches() == (before[0] + 1, before[1] + 1)
+    plain = tch.run_chain_batch(problems, 0.5, device=cuda_device,
+                                plain=True)
+    cpu = tch.run_chain_batch(problems, 0.5, device="cpu")
+    for g, p, c in zip(got, plain, cpu):
+        assert np.array_equal(g, p) and np.array_equal(g, c)
+
+
+@pytest.mark.gpu
+def test_windowed_route_on_card_matches_single_launch(tmp_path, cuda_device,
+                                                      monkeypatch):
+    """Task 1's window route on the card (4,096-cell windows, one launch
+    of each kernel per window) writes the single launch's bytes."""
+    from nextpolish_tpu_torch.models import score_chain as tsc
+    from nextpolish_tpu_torch.runtime import trace
+
+    case = sim.simulate_short_case(43, [20000], 30)
+    _, bam = sim.write_case(case, str(tmp_path))
+    batch = read_bam(bam)
+    cfg = tsc.AlgoConfig()
+    want = tsc.score_chain_contig("ctg0", case.drafts[0], batch, cfg,
+                                  device=cuda_device)
+    trace.reset("task1")
+    monkeypatch.setattr(tsc, "SHARD_WINDOW_CELLS", 4096)
+    before = _chain_launches()
+    got = tsc.score_chain_contig_windowed("ctg0", case.drafts[0], batch, cfg,
+                                          device=cuda_device)
+    n_win = int(trace.snapshot("task1.windows")["task1.windows"]["s"])
+    assert n_win >= 5
+    assert _chain_launches() == (before[0] + n_win, before[1] + n_win)
+    assert got == want
+    assert got == tsc.score_chain_contig_windowed(
+        "ctg0", case.drafts[0], batch, cfg, device="cpu")
+
+
+@pytest.mark.gpu
+def test_worker1_task2_cuda_matches_cpu(tmp_path, cuda_device):
+    """Task 2 on the card writes the CPU run's bytes, on task 1's output
+    for reads that leave the contig's last 8 kb uncovered (a no-depth
+    region: a planes launch and a rescue batch)."""
+    from nextpolish_tpu_torch import worker1
+
+    case = sim.simulate_short_case(47, [20000, 6000], 30)
+    case.records = [r for r in case.records
+                    if r["tid"] == 1 or r["pos"] < 12000]
+    fa, bam = sim.write_case(case, str(tmp_path))
+    t1 = str(tmp_path / "t1.fa")
+    assert worker1.main(["-g", fa, "-s", bam, "-t", "1", "-o", t1,
+                         "--device", "cpu"]) == 0
+    before = _chain_launches()
+    assert worker1.main(["-g", t1, "-s", bam, "-t", "2", "-o",
+                         str(tmp_path / "gpu.fa"), "--device", "cuda"]) == 0
+    after = _chain_launches()
+    assert after[0] >= before[0] + 2 and after[1] >= before[1] + 2
+    assert worker1.main(["-g", t1, "-s", bam, "-t", "2", "-o",
                          str(tmp_path / "cpu.fa"), "--device", "cpu"]) == 0
     assert (tmp_path / "gpu.fa").read_bytes() == \
         (tmp_path / "cpu.fa").read_bytes()

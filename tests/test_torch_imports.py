@@ -1,5 +1,6 @@
-"""The port stands alone: every module of nextpolish_tpu_torch imports,
-and the CPU slices (worker2, worker1 -t 1) run end to end, with `jax` and
+"""The port stands alone: every module of nextpolish_tpu_torch imports
+(kmer_count and parallel/shard among them), and the CPU slices (worker2,
+worker1 -t 1, then -t 2 on its output) run end to end, with `jax` and
 `nextpolish_tpu` made unimportable in the process."""
 import pathlib
 import re
@@ -40,6 +41,11 @@ with tempfile.TemporaryDirectory() as d:
     lines = open(out, "rb").read().split(b"\n")
     assert lines[0].startswith(b">ctg0 ") and len(lines[1]) > 2900
     assert lines[2].startswith(b">ctg1 ") and len(lines[3]) > 1100
+    out2 = os.path.join(d, "short2.fa")
+    assert worker1.main(["-g", out, "-s", bam, "-t", "2", "-o", out2,
+                         "--device", "cpu"]) == 0
+    lines2 = open(out2, "rb").read().split(b"\n")
+    assert [len(x) for x in lines2[1::2]] == [len(x) for x in lines[1::2]]
 assert level_chain.launches == 0 and level_winners.launches == 0
 assert forward_states.launches == 0 and traceback_batch.launches == 0
 assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items() if v is not None)

@@ -114,36 +114,72 @@ def test_worker1_python_pileup_matches_jax(tmp_path, monkeypatch):
 
 
 def test_worker1_refuses_unported_tasks_and_missing_card(tmp_path):
-    """-t 2..5 exit non-zero naming ROADMAP A4; --device cuda (the
+    """-t 3 and -t 5 exit non-zero naming ROADMAP A4; --device cuda (the
     default) without a card raises instead of running on the CPU."""
     c = sim.simulate_short_case(2, [2000], 10)
     fa, bam = _write(tmp_path, c.names, c.drafts, c.records)
-    for task in ("2", "5"):
+    for task in ("3", "5"):
         with pytest.raises(SystemExit) as e:
             torch_worker1.main(["-g", fa, "-s", bam, "-t", task, "-o",
                                 str(tmp_path / "x.fa"), "--device", "cpu"])
         assert e.value.code != 0
     if torch.cuda.is_available():
         return  # the cuda run is the gpu tests' job
-    with pytest.raises(RuntimeError, match="cuda"):
-        torch_worker1.main(["-g", fa, "-s", bam, "-t", "1",
-                            "-o", str(tmp_path / "y.fa")])
-    assert not (tmp_path / "y.fa").exists()
+    for task in ("1", "2"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            torch_worker1.main(["-g", fa, "-s", bam, "-t", task,
+                                "-o", str(tmp_path / "y.fa")])
+        assert not (tmp_path / "y.fa").exists()
 
 
 def test_worker1_refuses_a_launch_over_its_caps(tmp_path, monkeypatch):
-    """A contig past the 2^26-cell cap of the native walker's key packing
-    (here lowered to 1,000 cells), or a launch past the device's free
-    memory (here at 2^40 B a cell), raises naming ROADMAP A6 instead of
-    falling back."""
-    c = sim.simulate_short_case(4, [3000], 10)
+    """A contig past the 2^26-cell cap of the planes walker's key packing
+    (here lowered to 1,100 cells), or a launch past the device's free
+    memory (here at 2^40 B a cell), no longer raises: it takes the window
+    route (here 1,024-cell windows, so at least 3), and the FASTA is
+    byte-equal to the JAX worker1's; a contig under the caps keeps its
+    single launch."""
+    c = sim.simulate_short_case(4, [3000, 600], 10)
     fa, bam = _write(tmp_path, c.names, c.drafts, c.records)
-    argv = ["-g", fa, "-s", bam, "-t", "1", "-o", str(tmp_path / "x.fa"),
-            "--device", "cpu"]
+    monkeypatch.setattr(torch_sc, "SHARD_WINDOW_CELLS", 1024)
     with monkeypatch.context() as m:
-        m.setattr(torch_sc, "MAX_LAUNCH_CELLS", 1000)
-        with pytest.raises(RuntimeError, match="ROADMAP A6"):
-            torch_worker1.main(argv)
+        m.setattr(torch_sc, "MAX_LAUNCH_CELLS", 1100)
+        want, got = _run_both(tmp_path, fa, bam)
+    assert got == want
+    snap = trace.snapshot("task1")
+    assert snap["task1.windows"]["s"] >= 3
+    assert snap["task1.windows"]["n"] == 1  # the 600 bp contig: one launch
+    assert snap["task1.chain_launches"]["n"] == 1
     monkeypatch.setattr(torch_sc, "LAUNCH_BYTES_PER_CELL", 1 << 40)
-    with pytest.raises(RuntimeError, match="ROADMAP A6"):
-        torch_worker1.main(argv)
+    (tmp_path / "mem").mkdir()
+    want, got = _run_both(tmp_path / "mem", fa, bam)
+    assert got == want
+    snap = trace.snapshot("task1")
+    assert snap["task1.windows"]["n"] == 2
+    assert "task1.chain_launches" not in snap
+
+
+def test_worker1_splits_a_group_over_the_cap(tmp_path, monkeypatch):
+    """With NPT_CHAIN_BATCH=2, two contigs of one shape bucket that each
+    fit the free memory but not together launch one by one, with the JAX
+    worker1's bytes."""
+    c = sim.simulate_short_case(6, [2000, 1900], 10)
+    fa, bam = _write(tmp_path, c.names, c.drafts, c.records)
+    monkeypatch.setenv("NPT_CHAIN_BATCH", "2")
+    monkeypatch.setattr(torch_sc, "device_free_bytes",
+                        lambda dev: 3000 * torch_sc.LAUNCH_BYTES_PER_CELL)
+    sizes = []
+    dispatch = torch_sc.dispatch_chain_group
+
+    def spy(handles, device=None):
+        sizes.append(len(handles))
+        return dispatch(handles, device)
+
+    monkeypatch.setattr(torch_sc, "dispatch_chain_group", spy)
+    want, got = _run_both(tmp_path, fa, bam)
+    assert got == want
+    assert sizes == [2, 1, 1]
+    snap = trace.snapshot("task1")
+    assert snap["task1.chain_launches"]["n"] == 2
+    assert snap["task1.chain_cells"]["s"] == 2 * 2048
+    assert "task1.windows" not in snap
