@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (nextpolish_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 1] [--contigs 8] [--phases 1,2,3,4,5,6]
+    python3 chip_smoke.py [--seed 1] [--contigs 4] [--phases 1,2,3,4,5,6,7]
 
 Phases (any failed check exits non-zero; nothing is caught):
   1. build   the engine-2 level-scan kernels (nvcc, sm_90a: the chain and
              the winners), task 1's chain-DP kernels (the forward scan and
-             the traceback) and the native host library, all from the
+             the traceback), the aligner's kernels (the banded DP and its
+             traceback) and the native host library, all from the
              sources in this checkout, in parallel; each kernel's
              registers, shared memory and spills as ptxas reports them;
              the native library must hold the task-1 pileup walker;
@@ -15,7 +16,9 @@ Phases (any failed check exits non-zero; nothing is caught):
              winners), for the ont/clr/rs/hifi rules: a batch of eight
              10-17 kb windows, and windows with E > 20, with Vb > 8 and
              with a 300-level insertion chain;
-  3. main    worker2 -r ont --device cuda on a simulated bacterial-scale
+  3. main    the engine calibration's pick on this card and both probe
+             rates (models/cns/calib.py), then worker2 -r ont --device cuda
+             with NPT_CNS_ENGINE=device on a simulated bacterial-scale
              draft (--contigs x 600 kb, 30x ONT-like reads of 3-12 kb with
              3% each of substitutions, insertions and deletions); both
              kernels must have been launched, and the FASTA must be
@@ -28,9 +31,10 @@ Phases (any failed check exits non-zero; nothing is caught):
              chain the latency bound (longest window's levels x one
              dependent shared-memory load -> store step, measured here,
              / the SM clock read during the run).  The group's shortest
-             window is scanned whole by the plain versions, which must
-             equal, byte for byte, both kernels on that window alone and
-             the full-size launch (winners and score tail); and the group
+             window, cut to its first 100,000 levels, is scanned by the
+             plain versions, which must equal, byte for byte, both kernels
+             on that prefix alone and the full-size launch's winners over
+             it; and the group
              cut to its first 4,096 levels per window times each kernel
              beside its plain version on the same inputs;
   4. check   task 1's chain DP on the card, kernels against their plain
@@ -49,7 +53,11 @@ Phases (any failed check exits non-zero; nothing is caught):
              result bytes through the plain versions on the card; then the
              differences to the truth before and after polishing, and each
              kernel's time on the largest launch beside its plain version
-             and its bounds;
+             and its bounds; the largest launch's whole DP (both kernels
+             and the torch ops) re-run twice under torch.profiler, its
+             summed kernel time printed as task1.dp_device_ms (the two
+             readings must agree within 5%); with phase 7, the reads of
+             phase 7's genome written as r1/r2.fq.gz;
   6. main    on phase 5's BAM and output (it writes no BAM): (a) the
              chromosome alone through task 1's window route, forced
              in-process by lowering the single-launch cap to 2^20 cells
@@ -64,17 +72,46 @@ Phases (any failed check exits non-zero; nothing is caught):
              when the run has no rescue batch, and the phase says so); the
              no-depth regions, the launches, the wall, bases/s, and the
              differences to the truth after task 2 beside those after
-             task 1.
+             task 1;
+  7. main    the aligner and the run.cfg pipeline: (a) both aligner
+             kernels against their plain versions on the card, byte for
+             byte, in local, global and extend modes at the main path's
+             shapes (R, B) = (150, 32) with 8,192 reads, (150, 1,150)
+             (mate rescue), (4,096, 512) (the largest long-read segment
+             bucket) and (1,000, 64) (end extensions), reads built to tie,
+             each shape timed beside its plain version and its bound;
+             (b) `python -m nextpolish_tpu_torch run.cfg --device cuda`
+             with task = default (5, 1, 2) on phase 5's genome with the
+             chromosome cut to its first 1,000,000 bp: phase 5's PE150
+             reads of it (written by phase 5, not simulated again) and
+             30x long reads of 3-12 kb with 3% each of substitutions,
+             insertions and deletions (phase 3's error model), as
+             FASTA.gz; the built-in mapper runs on the card every round.
+             Printed: the stage walls (mapping and polish per task), the
+             kernel launches of every kernel on the path, the aligner
+             kernels' times at the short-read shape and the largest
+             long-read bucket, calib's pick with both rates,
+             max_memory_allocated, and the differences to the truth after
+             every round; the aligner launches, recorded on the way, are
+             re-run through the plain versions on the card (the first 20,
+             one of every (mode, R, B) shape, then more while a time
+             budget lasts; the count is printed) and must be equal.
 
-Phase 3's number of contigs (--contigs) is the only cut: contig length,
-depth and error rates are fixed; phases 5 and 6 are not cut (phase 6(a)
-lowers the launch cap, not the contig: a contig past the real cap needs
-about 10 M reads, which this script's time limit cannot simulate).
---phases runs a subset (the build always runs; 6 needs 5).
+Cuts, all of scale, none of shape: phase 3's number of contigs
+(--contigs, 4 by default, 8 before the aligner's phase); phase 3's plain
+check of a whole window became its first 100,000 levels; phase 7(b)'s
+chromosome is cut to 1,000,000 bp (the host half of the mapper, about
+0.2 ms a short read, would need about 500 s for the whole genome's two
+short-read rounds).  Depth, read lengths and error rates are not cut;
+phases 5 and 6 are not cut (phase 6(a) lowers the launch cap, not the
+contig: a contig past the real cap needs about 10 M reads, which this
+script's time limit cannot simulate).  --phases runs a subset (the build
+always runs; 6 and 7 need 5).
 
 The last three lines are the kernels' JSON record (the level scan's two
-kernels, one port of the TPU kernel, and task 1's two chain kernels, with
-their launches on each path), the card's name and power limit, and
+kernels, one port of the TPU kernel; task 1's two chain kernels; the
+aligner's two kernels; with their launches on each path), the card's
+name and power limit, and
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of
 the JAX package, and exits non-zero without a result when no CUDA device
 is usable.
@@ -106,11 +143,24 @@ CHAIN_KERNELS = {  # name -> the JAX function it replaces (XLA, not Pallas)
     "chain_traceback": "nextpolish_tpu/ops/tropical.py:191",
 }
 CHAIN_SOURCE = "nextpolish_tpu_torch/csrc/chain_scan.cu"
+BAND_KERNELS = {  # name -> the JAX function it replaces (XLA, not Pallas)
+    "band_align": "nextpolish_tpu/align/extend.py:30",
+    "band_traceback": "nextpolish_tpu/align/extend.py:164",
+}
+BAND_SOURCE = "nextpolish_tpu_torch/csrc/band_align.cu"
+# phase 7(a): (R, B, reads, mode) of the main path's launches: short
+# reads, mate rescue, the largest long-read segment bucket, end extensions
+BAND_SHAPES = ((150, 32, 8192, "local"), (150, 1150, 256, "local"),
+               (4096, 512, 16, "global"), (1000, 64, 512, "extend"))
+PIPE_CHROM_BASES = 1_000_000  # phase 7(b)'s cut of the chromosome
+PIPE_LONG_DEPTH = 30
+REPLAY_BUDGET_S = 90.0  # phase 7(b)'s plain re-runs past the required ones
+WINDOW_LEVELS = 100_000  # phase 3's plain check of one window's prefix
 # task 1's main path: a chromosome and two plasmids, PE150 at 40x
 TASK1_CONTIGS = (4_600_000, 100_000, 50_000)
 TASK1_DEPTH = 40
 # worst kernel-vs-plain difference seen, per kernel, over every check
-ERR = dict.fromkeys(KERNELS + tuple(CHAIN_KERNELS), 0)
+ERR = dict.fromkeys(KERNELS + tuple(CHAIN_KERNELS) + tuple(BAND_KERNELS), 0)
 
 RT_ERRORS = {  # (sub, ins, del) per read type of the kernel checks
     "ont": (0.03, 0.03, 0.03),
@@ -140,6 +190,7 @@ def log(msg: str) -> None:
 
 def build_all():
     from nextpolish_tpu_torch import native
+    from nextpolish_tpu_torch.align import extend as text
     from nextpolish_tpu_torch.models.cns import level_scan as ls
     from nextpolish_tpu_torch.ops import chain as tch
 
@@ -154,6 +205,7 @@ def build_all():
 
     threads = [threading.Thread(target=run, args=("level_scan", ls.build)),
                threading.Thread(target=run, args=("chain_scan", tch.build)),
+               threading.Thread(target=run, args=("band_align", text.build)),
                threading.Thread(target=run, args=("native", native.build))]
     for t in threads:
         t.start()
@@ -163,7 +215,9 @@ def build_all():
     check(native.available(), "native library did not load")
     check(hasattr(native._load(), "npt_pileup_planes"),
           "the native library has no npt_pileup_planes")
-    for lib in ("level_scan", "chain_scan"):
+    check(hasattr(native._load(), "npt_chain_dp"),
+          "the native library has no npt_chain_dp (the mapper's chaining)")
+    for lib in ("level_scan", "chain_scan", "band_align"):
         info, secs = out[lib]
         log(f"build: {lib} nvcc {info['seconds']:.1f} s (wall {secs:.1f} s)")
         for name, props in ptxas_by_kernel(info["ptxas"]).items():
@@ -173,7 +227,8 @@ def build_all():
     log(f"  level_chain dynamic shared memory {ls.chain_smem_bytes()} B "
         "per block")
     log('build: ' + json.dumps({"kernels": list(KERNELS)
-                                + list(CHAIN_KERNELS)}))
+                                + list(CHAIN_KERNELS)
+                                + list(BAND_KERNELS)}))
 
 
 def ptxas_by_kernel(text: str) -> dict:
@@ -185,7 +240,8 @@ def ptxas_by_kernel(text: str) -> dict:
         if m:
             k = re.search(r"(level_chain_kernel|level_winners_kernel|"
                           r"smem_step_probe|fwd_chunks|fwd_up|fwd_down|"
-                          r"fwd_replay|tb_maps|tb_walk|tb_replay)"
+                          r"fwd_replay|tb_maps|tb_walk|tb_replay|"
+                          r"band_align_kernel|band_traceback_kernel)"
                           r"(?:IL[bi](\d)E)?", m.group(1))
             cur = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
                    if k else m.group(1))
@@ -355,6 +411,25 @@ def time_ms(fn, dev, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def calib_pick(dev) -> dict:
+    """The engine calibration on this card (models/cns/calib.py, cached
+    in NPT_CNS_CALIB for the rest of the run): its pick and both probe
+    rates."""
+    from nextpolish_tpu_torch.models.cns import calib
+
+    t0 = time.perf_counter()
+    eng = calib.choose_engine("ont", dev)
+    secs = time.perf_counter() - t0
+    rec = json.load(open(os.environ["NPT_CNS_CALIB"]))[
+        calib._cache_key("ont", dev)]
+    check(rec["engine"] == eng, "calib's cache disagrees with its pick")
+    log(f"calib: picked the {eng} engine: probe rates device "
+        f"{rec['device_bases_per_s']} bases/s, native "
+        f"{rec['native_bases_per_s']} bases/s ({secs:.1f} s, "
+        f"{calib._cache_key('ont', dev)})")
+    return rec
+
+
 def main_path(tmp, dev, args):
     import torch
 
@@ -386,8 +461,9 @@ def main_path(tmp, dev, args):
         return dispatch(dws, *a, **k)
 
     batcher_mod.dispatch_group = recording_dispatch
+    pick = calib_pick(dev)
     out_dev = os.path.join(tmp, "main", "device.fa")
-    os.environ.pop("NPT_CNS_ENGINE", None)
+    os.environ["NPT_CNS_ENGINE"] = "device"
     trace.reset()
     torch.cuda.reset_peak_memory_stats(dev)
     ls.level_chain.launches = 0
@@ -401,6 +477,7 @@ def main_path(tmp, dev, args):
     snap = trace.snapshot("cns")
     peak = torch.cuda.max_memory_allocated(dev)
     batcher_mod.dispatch_group = dispatch
+    os.environ.pop("NPT_CNS_ENGINE")
     check(rc == 0, f"worker2 --device cuda returned {rc}")
     for k in KERNELS:
         check(launches[k] > 0, f"the main path launched {k} no time")
@@ -436,6 +513,12 @@ def main_path(tmp, dev, args):
     a, b = open(out_dev, "rb").read(), open(out_nat, "rb").read()
     log(f"main: native engine wall {nat_wall:.2f} s; FASTA "
         f"{'byte-equal' if a == b else 'DIFFERENT'} ({len(a)} B)")
+    faster = "device" if wall < nat_wall else "native"
+    log(f"main: calib picked {pick['engine']} (probe: device "
+        f"{pick['device_bases_per_s']}, native {pick['native_bases_per_s']}"
+        f" bases/s); this phase measured the {faster} engine faster "
+        f"(device {wall:.2f} s, native {nat_wall:.2f} s): "
+        f"{'agrees' if faster == pick['engine'] else 'DISAGREES'}")
     check(a == b, "device-engine FASTA differs from the native engine's")
     truth_len = sum(len(t) for t in case.truths)
     log(f"main: polished length {polished} vs truth {truth_len}")
@@ -506,29 +589,32 @@ def main_path(tmp, dev, args):
                f"{step} cycles / {mhz:.0f} MHz)" if k == "level_chain"
                else ""))
 
-    # the group's shortest window, whole, against the plain versions
+    # the group's shortest window, its first WINDOW_LEVELS levels, against
+    # the plain versions (a prefix of the level scan is the scan of the
+    # prefix)
     i = min(range(len(dws)), key=lambda j: dws[j].n_levels)
-    one = pack_batch([dws[i]]).to(dev)  # every level's scores kept
+    cut = truncate(dws[i], WINDOW_LEVELS)
+    one = pack_batch([cut]).to(dev)  # every level's scores kept
     ki1 = ls.level_chain(one, rt_id, c)
     kb1, ks1 = ls.level_winners(one, ki1, rt_id)
     t0 = time.perf_counter()
     pi1 = ls.level_chain_plain(one, rt_id, c)
     pb1, ps1 = ls.level_winners_plain(one, pi1, rt_id)
     torch.cuda.synchronize(dev)
-    whole_plain_s = time.perf_counter() - t0
-    fb_, fs = res["full"]
-    lb, nl, _, _, sc_from, sc_base = (int(x) for x in full.win_host[i, :6])
-    win_pairs = [(kb1, pb1), (ks1, ps1), (fb_[lb:lb + nl], pb1),
-                 (fs[sc_base:sc_base + nl - sc_from], ps1[sc_from:])]
+    cut_plain_s = time.perf_counter() - t0
+    fb_ = res["full"][0]
+    lb = int(full.win_host[i, 0])
+    nl = cut.n_levels
+    win_pairs = [(kb1, pb1), (ks1, ps1), (fb_[lb:lb + nl], pb1)]
     e_chain, e_win = max_err([(ki1, pi1)]), max_err(win_pairs)
-    log(f"main: window {i} of that group whole ({nl} levels, E={dws[i].E}, "
-        f"Vb={dws[i].Vb}): plain {whole_plain_s:.1f} s; kernels alone and "
-        f"the full-size launch vs plain: max_abs_err chain {e_chain}, "
-        f"winners {e_win}")
+    log(f"main: window {i} of that group, its first {nl} of "
+        f"{dws[i].n_levels} levels (E={dws[i].E}, Vb={dws[i].Vb}): plain "
+        f"{cut_plain_s:.1f} s; kernels alone and the full-size launch's "
+        f"winners vs plain: max_abs_err chain {e_chain}, winners {e_win}")
     check(e_chain == 0 and torch.equal(ki1, pi1),
-          "level_chain kernel != plain on a whole main-path window")
+          "level_chain kernel != plain on a main-path window prefix")
     check(e_win == 0 and all(torch.equal(a, b) for a, b in win_pairs),
-          "level_winners kernel != plain on a whole main-path window")
+          "level_winners kernel != plain on a main-path window prefix")
     ERR["level_chain"] = max(ERR["level_chain"], e_chain)
     ERR["level_winners"] = max(ERR["level_winners"], e_win)
     del one, ki1, kb1, ks1, pi1, pb1, ps1, win_pairs
@@ -796,6 +882,26 @@ def differences(truth: bytes, seq: bytes, step: int = 2000) -> int:
     return total
 
 
+def profiled_device_ms(fn, dev):
+    """One call of fn under torch.profiler (CPU and CUDA activity): the
+    summed device time of every kernel it ran (ms) and that time per
+    kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    check(per, "torch.profiler recorded no device time")
+    return sum(per.values()), per
+
+
 def chain_bounds(B: int, L: int, step_cycles: int, mhz: float) -> dict:
     """Least time of each chain kernel's work on an H100: bytes moved (each
     input read once, each output written once) over HBM bandwidth, and
@@ -841,6 +947,11 @@ def task1_main_path(tmp, dev, args, ctx):
     t1 = time.perf_counter()
     fa, bam = sim.write_case(case, os.path.join(tmp, "task1"))
     n_reads = len(case.records)
+    if 7 in args.phase_set:
+        # phase 7's genome: the chromosome's first PIPE_CHROM_BASES bases
+        # and the plasmids, with the fragments that lie inside them
+        ctx["pipe_sgs"] = [r for r in case.records if r["tid"] != 0 or max(
+            r["pos"], r["mpos"]) + 200 <= PIPE_CHROM_BASES]
     case.records = None  # the BAM holds them now
     log(f"task1: simulated {len(TASK1_CONTIGS)} contigs, "
         f"{sum(TASK1_CONTIGS)} bp, {n_reads} PE150 reads at {TASK1_DEPTH}x "
@@ -935,6 +1046,30 @@ def task1_main_path(tmp, dev, args, ctx):
     mhz = sm_clock_mhz()
     step = ls.smem_step_cycles(dev)
     bnd, dep_ms = chain_bounds(B, L, step, mhz)
+    # the largest launch's whole DP (both kernels and the torch ops), its
+    # device time from the profiler, twice
+    big = max(launches_rec, key=lambda r: r[1][0] * len(r[0]))
+    dbuf = torch.from_numpy(big[0].view(np.int16)).to(dev)
+    readings = []
+    for _ in range(2):
+        total, per = profiled_device_ms(
+            lambda: tch.chain_correct_planes_batch(dbuf, *big[1]), dev)
+        readings.append(total)
+        log(f"task1.dp_device_ms {total:.3f} (the largest launch's DP, "
+            f"B={len(big[0])}, L={big[1][0]}: {len(per)} kernels, "
+            f"torch.profiler)")
+    check(any("fwd_" in n for n in per) and any("tb_" in n for n in per),
+          f"the profiler saw no chain kernel: {sorted(per)[:20]}")
+    hand = sum(v for n, v in per.items() if "fwd_" in n or "tb_" in n)
+    log("task1: the DP's kernels by device time (ms): " + ", ".join(
+        f"{n[:60]} {v:.3f}" for n, v in sorted(per.items(),
+                                                key=lambda kv: -kv[1])[:8]))
+    log(f"task1: the two hand kernels {hand:.3f} ms of "
+        f"{readings[-1]:.3f} ms ({hand / readings[-1] * 100:.1f}%), the "
+        f"torch ops the rest")
+    check(abs(readings[0] - readings[1]) <= 0.05 * max(readings),
+          f"task1.dp_device_ms readings {readings} differ by more than 5%")
+    del dbuf
     recs = []
     for k in CHAIN_KERNELS:
         log(f"task1: {k} on the largest launch (B={B}, L={L}): "
@@ -1135,16 +1270,411 @@ def task2_main_path(tmp, dev, ctx):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the aligner's kernels and the run.cfg pipeline
+# ---------------------------------------------------------------------------
+
+def band_launches():
+    from nextpolish_tpu_torch.align import extend as text
+
+    return {"band_align": text.band_align_core.launches,
+            "band_traceback": text.band_traceback.launches}
+
+
+def band_bounds(q, t, ops, R: int, B: int) -> dict:
+    """Least time of each aligner kernel's work on an H100: bytes moved
+    (each input read once, each output written once) over HBM bandwidth,
+    and int32 operations over the non-tensor rate; the larger bounds it.
+    band_align: q, t, qlen, tlen in; tb (a byte a cell), best and the end
+    cell out; about 30 operations a cell (the substitution score, E, the
+    diagonal, the floor, the decay, one max of the scan, F, the open bits,
+    H, the source and the byte, the row maximum, Hfin).  band_traceback:
+    the cells this run's walks visit (the ops emitted, plus the end step)
+    read once, the end cells in, the packed ops and final cells out;
+    about 10 operations a step.  Returns {kernel: (ms, bound_by, bytes,
+    ops)}."""
+    Bt = q.shape[0]
+    steps = int((ops > 0).sum()) + Bt
+    work = {
+        "band_align": (Bt * (R + (R + B) + 8) + Bt * R * B + Bt * 12,
+                       Bt * R * B * 30),
+        "band_traceback": (steps + Bt * 8 + ops.size // 4 + Bt * 8,
+                           steps * 10),
+    }
+    out = {}
+    for k, (nbytes, nops) in work.items():
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = nops / H100_INT_OPS_PER_S * 1e3
+        out[k] = (max(t_bytes, t_ops),
+                  "bytes" if t_bytes >= t_ops else "operations", nbytes,
+                  nops)
+    return out
+
+
+def hold_band(dev, q, t, qlen, tlen, kw, label, want=None):
+    """Both aligner kernels against their plain versions on the same card
+    tensors (tb, best, end cell; ops, final cell), byte for byte; `want`
+    holds outputs recorded earlier (compared too).  Returns the kernel
+    outputs."""
+    import torch
+
+    from nextpolish_tpu_torch.align import extend as text
+
+    core = text.band_align_core(q, t, qlen, tlen, **kw)
+    walk = text.band_traceback(core[0], core[2], core[3])
+    pcore = text.band_align_plain(q, t, qlen, tlen, **kw)
+    pwalk = text.band_traceback_plain(pcore[0], pcore[2], pcore[3])
+    torch.cuda.synchronize(dev)
+    pairs = list(zip(core + walk, pcore + pwalk))
+    errs = [int((a.long() - b.long()).abs().max()) if a.numel() else 0
+            for a, b in pairs]
+    ERR["band_align"] = max(ERR["band_align"], *errs[:4])
+    ERR["band_traceback"] = max(ERR["band_traceback"], *errs[4:])
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+    if want is not None:
+        same = same and all(torch.equal(a.cpu(), b) for a, b in
+                            zip(core[1:] + walk, want))
+    check(same, f"aligner kernels != plain ({label}, max_abs_err "
+          f"{max(errs)})")
+    return core, walk
+
+
+def band_checks(dev, seed):
+    """Phase 7(a): both aligner kernels against their plain versions at
+    the main path's shapes, every mode; each shape's main-path mode
+    timed."""
+    import torch
+
+    from nextpolish_tpu_torch import sim
+    from nextpolish_tpu_torch.align import extend as text
+
+    timings = {}
+    for R, B, Bt, main_mode in BAND_SHAPES:
+        for mode in ("local", "global", "extend"):
+            kw = dict(mode=mode, **sim.BAND_SCORES[mode])
+            q, t, qlen, tlen = (torch.from_numpy(x).to(dev) for x in
+                                sim.band_case(seed + R + B, Bt, R, B, mode))
+            t0 = time.perf_counter()
+            core, walk = hold_band(dev, q, t, qlen, tlen, kw,
+                                   f"{mode}, R={R}, B={B}, {Bt} reads")
+            log(f"check aligner {mode:6s} R={R:4d} B={B:4d} reads={Bt:4d}: "
+                f"both kernels equal to plain "
+                f"({time.perf_counter() - t0:.1f} s)")
+            if mode != main_mode:
+                continue
+            ms = {"band_align": time_ms(
+                      lambda: text.band_align_core(q, t, qlen, tlen, **kw),
+                      dev, 5),
+                  "band_traceback": time_ms(
+                      lambda: text.band_traceback(core[0], core[2], core[3]),
+                      dev, 5)}
+            plain_ms = {
+                "band_align": time_ms(
+                    lambda: text.band_align_plain(q, t, qlen, tlen, **kw),
+                    dev, 1),
+                "band_traceback": time_ms(
+                    lambda: text.band_traceback_plain(core[0], core[2],
+                                                      core[3]), dev, 1)}
+            bnd = band_bounds(q, t, walk[0].cpu().numpy(), R, B)
+            for k in BAND_KERNELS:
+                log(f"check aligner {k} at ({R}, {B}) x {Bt} {mode}: "
+                    f"{ms[k]:.3f} ms, plain {plain_ms[k]:.1f} ms, bound "
+                    f"{bnd[k][0]:.4f} ms ({bnd[k][1]}: {bnd[k][2]} B, "
+                    f"{bnd[k][3]} ops)")
+            timings[(R, B)] = dict(reads=Bt, mode=mode, ms=ms,
+                                   plain_ms=plain_ms, bound=bnd)
+    return timings
+
+
+class capture_band:
+    """While active, align/extend.py's two kernel wrappers record every
+    call on the way: the inputs and outputs, on the host (the traceback
+    tensor for the first `keep_tb` calls only).  The counts move to the
+    recorders and back, as in capture_scans."""
+
+    def __init__(self, keep_tb=20):
+        from nextpolish_tpu_torch.align import extend as text
+
+        self.text = text
+        self.keep_tb = keep_tb
+        self.orig = (text.band_align_core, text.band_traceback)
+        self.calls = []
+
+    def __enter__(self):
+        core_fn, walk_fn = self.orig
+
+        def rec_core(q, t, qlen, tlen, **kw):
+            out = core_fn(q, t, qlen, tlen, **kw)
+            self.calls.append(dict(
+                inputs=[x.cpu() for x in (q, t, qlen, tlen)], kw=kw,
+                core=[x.cpu() for x in out[1:]],
+                tb=out[0].cpu() if len(self.calls) < self.keep_tb else None))
+            return out
+
+        def rec_walk(tb, end_i, end_c):
+            out = walk_fn(tb, end_i, end_c)
+            self.calls[-1]["walk"] = [x.cpu() for x in out]
+            return out
+
+        rec_core.launches = core_fn.launches
+        rec_walk.launches = walk_fn.launches
+        self.text.band_align_core = rec_core
+        self.text.band_traceback = rec_walk
+        return self
+
+    def __exit__(self, *exc):
+        core_fn, walk_fn = self.orig
+        core_fn.launches = self.text.band_align_core.launches
+        walk_fn.launches = self.text.band_traceback.launches
+        self.text.band_align_core, self.text.band_traceback = self.orig
+
+
+def replay_band(cap, dev):
+    """Re-run recorded aligner calls through the plain versions on the
+    card: the first 20, the first of every (mode, R, B) shape, then more
+    in order while REPLAY_BUDGET_S lasts.  Returns (re-run, of)."""
+    import torch
+
+    from nextpolish_tpu_torch.align import extend as text
+
+    seen, todo = set(), []
+    for n, c in enumerate(cap.calls):
+        shape = (c["kw"]["mode"], c["inputs"][0].shape[1],
+                 c["inputs"][1].shape[1] - c["inputs"][0].shape[1])
+        if n < 20 or shape not in seen:
+            todo.append(n)
+        seen.add(shape)
+    t0 = time.perf_counter()
+    done = set()
+    for n in todo + [n for n in range(len(cap.calls)) if n not in todo]:
+        if n not in todo and time.perf_counter() - t0 > REPLAY_BUDGET_S:
+            break
+        c = cap.calls[n]
+        q, t, qlen, tlen = (x.to(dev) for x in c["inputs"])
+        pcore = text.band_align_plain(q, t, qlen, tlen, **c["kw"])
+        pwalk = text.band_traceback_plain(pcore[0], pcore[2], pcore[3])
+        got = c["core"] + c["walk"]
+        same = all(torch.equal(a.cpu(), b) for a, b in
+                   zip(pcore[1:] + pwalk, got))
+        if c["tb"] is not None:
+            same = same and torch.equal(pcore[0].cpu(), c["tb"])
+        check(same, f"aligner launch {n} ({c['kw']['mode']}, q "
+              f"{tuple(c['inputs'][0].shape)}, t "
+              f"{tuple(c['inputs'][1].shape)}) != its plain re-run")
+        done.add(n)
+    return len(done), len(cap.calls), len(seen)
+
+
+def read_fasta(path) -> dict:
+    out, name = {}, None
+    for line in open(path, "rb").read().split(b"\n"):
+        if line.startswith(b">"):
+            name = line[1:].split(b" ")[0].decode()
+            out[name] = []
+        elif name is not None and line:
+            out[name].append(line)
+    return {k: b"".join(v) for k, v in out.items()}
+
+
+def pipeline_main_path(tmp, dev, args, ctx):
+    """Phase 7(b): python -m nextpolish_tpu_torch run.cfg --device cuda,
+    task = default, on phase 5's genome with the chromosome cut."""
+    import torch
+
+    from nextpolish_tpu_torch import __main__ as cli
+    from nextpolish_tpu_torch import pipeline as tpipe
+    from nextpolish_tpu_torch import sim
+    from nextpolish_tpu_torch.align import extend as text
+    from nextpolish_tpu_torch.models.cns import level_scan as ls
+
+    case = ctx["case"]
+    names = case.names
+    truths = [case.truths[0][:PIPE_CHROM_BASES]] + case.truths[1:]
+    drafts = [case.drafts[0][:PIPE_CHROM_BASES]] + case.drafts[1:]
+    t0 = time.perf_counter()
+    lgs = sim.long_reads(args.seed + 7, truths, PIPE_LONG_DEPTH)
+    proj = os.path.join(tmp, "pipeline")
+    cfg = sim.write_project(proj, names, drafts, "default",
+                            sgs=ctx.pop("pipe_sgs"), lgs=lgs)
+    log(f"pipeline: {sum(map(len, drafts))} bp ({names[0]} cut to "
+        f"{PIPE_CHROM_BASES} bp, {names[1]}, {names[2]}), phase 5's PE150 "
+        f"reads of it as r1/r2.fq.gz, {len(lgs)} long reads "
+        f"({sum(len(r['seq_nib']) for r in lgs)} bases, "
+        f"{PIPE_LONG_DEPTH}x) as lgs.fa.gz "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del lgs
+
+    walls = {}
+    maps = {"map_sgs": tpipe.Pipeline.map_sgs,
+            "map_long": tpipe.Pipeline.map_long}
+
+    def timed(fn):
+        def run(self, *a, **k):
+            t1 = time.perf_counter()
+            out = fn(self, *a, **k)
+            walls.setdefault("mapping", []).append(time.perf_counter() - t1)
+            return out
+        return run
+
+    for k, fn in maps.items():
+        setattr(tpipe.Pipeline, k, timed(fn))
+    stages = []
+    stage_fn = tpipe.StageRunner.stage
+
+    def timed_stage(self, name, fn, subdir=None):
+        t1 = time.perf_counter()
+        out = stage_fn(self, name, fn, subdir)
+        stages.append((name, time.perf_counter() - t1))
+        return out
+
+    tpipe.StageRunner.stage = timed_stage
+    zero_chain_launches()
+    ls.level_chain.launches = 0
+    ls.level_winners.launches = 0
+    text.band_align_core.launches = 0
+    text.band_traceback.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with capture_band() as cap:
+            t0 = time.perf_counter()
+            rc = cli.main([cfg, "--device", "cuda"])
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+    finally:
+        for k, fn in maps.items():
+            setattr(tpipe.Pipeline, k, fn)
+        tpipe.StageRunner.stage = stage_fn
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {**band_launches(), **chain_launches(),
+                "level_chain": ls.level_chain.launches,
+                "level_winners": ls.level_winners.launches}
+    check(rc == 0, f"python -m nextpolish_tpu_torch returned {rc}")
+    pick = json.load(open(os.environ["NPT_CNS_CALIB"]))
+    pick = next(v for k, v in pick.items() if k.endswith("/ont"))
+    log(f"pipeline: wall {wall:.2f} s; calib's pick {pick['engine']} "
+        f"(probe: device {pick['device_bases_per_s']}, native "
+        f"{pick['native_bases_per_s']} bases/s); kernel launches "
+        f"{launches}; max_memory_allocated {peak} B")
+    for (name, secs), mwall in zip(stages, walls["mapping"]):
+        log(f"pipeline: stage {name}: {secs:.2f} s, mapping {mwall:.2f} s, "
+            f"polish {secs - mwall:.2f} s")
+    need = list(BAND_KERNELS) + list(CHAIN_KERNELS)
+    if pick["engine"] == "device":
+        need += list(KERNELS)
+    for k in need:
+        check(launches[k] > 0, f"the pipeline launched {k} no time")
+    check(launches["band_align"] == len(cap.calls),
+          "aligner launches and recorded calls differ")
+
+    work = os.path.join(proj, "work")
+    asm = read_fasta(os.path.join(work, "genome.nextpolish.fasta"))
+    check(os.path.exists(os.path.join(work,
+                                      "genome.nextpolish.fasta.stat")),
+          "no genome.nextpolish.fasta.stat")
+    rounds = [("draft", dict(zip(names, drafts)))]
+    for step, stage in enumerate(("lgs_polish", "score_chain",
+                                  "kmer_count"), 1):
+        rounds.append((stage, read_fasta(os.path.join(
+            work, f"{step:02d}.{stage}", "genome.nextpolish.part.fasta"))))
+    check(asm == rounds[-1][1], "the assembly differs from the last round")
+    for name, truth in zip(names, truths):
+        diffs = []
+        for stage, seqs in rounds:
+            check(name in seqs, f"{name} missing after {stage}")
+            diffs.append(f"{stage} {differences(truth, seqs[name])}")
+        log(f"pipeline: {name} ({len(truth)} bp): differences to the truth "
+            + ", ".join(diffs))
+
+    # the aligner's launches again through the plain versions
+    t0 = time.perf_counter()
+    n_done, n_all, n_shapes = replay_band(cap, dev)
+    log(f"pipeline: {n_done} of {n_all} aligner launches ({n_shapes} "
+        f"(mode, R, B) shapes) re-run through the plain versions on the "
+        f"card: equal ({time.perf_counter() - t0:.1f} s)")
+
+    # both kernels timed at the short-read shape and the largest bucket
+    def shape_of(c):
+        return (c["kw"]["mode"], c["inputs"][0].shape[1],
+                c["inputs"][1].shape[1] - c["inputs"][0].shape[1],
+                c["inputs"][0].shape[0])
+
+    short = max((c for c in cap.calls if shape_of(c)[0] == "local"
+                 and shape_of(c)[2] == 32),
+                key=lambda c: shape_of(c)[3], default=None)
+    longest = max((c for c in cap.calls if c["kw"]["mode"] == "global"),
+                  key=lambda c: shape_of(c)[1] * shape_of(c)[2],
+                  default=None)
+    check(short is not None and longest is not None,
+          "no short-read or segment launch recorded")
+    timed_shapes = {}
+    for label, c in (("short reads", short), ("largest segment bucket",
+                                              longest)):
+        mode, R, B, Bt = shape_of(c)
+        q, t, qlen, tlen = (x.to(dev) for x in c["inputs"])
+        core, walk = hold_band(dev, q, t, qlen, tlen, c["kw"], label,
+                               want=c["core"] + c["walk"])
+        ms = {"band_align": time_ms(
+                  lambda: text.band_align_core(q, t, qlen, tlen, **c["kw"]),
+                  dev, 5),
+              "band_traceback": time_ms(
+                  lambda: text.band_traceback(core[0], core[2], core[3]),
+                  dev, 5)}
+        plain_ms = {
+            "band_align": time_ms(
+                lambda: text.band_align_plain(q, t, qlen, tlen, **c["kw"]),
+                dev, 1),
+            "band_traceback": time_ms(
+                lambda: text.band_traceback_plain(core[0], core[2], core[3]),
+                dev, 1)}
+        bnd = band_bounds(q, t, walk[0].cpu().numpy(), R, B)
+        for k in BAND_KERNELS:
+            log(f"pipeline: {k} on a {label} launch ({mode}, R={R}, B={B},"
+                f" {Bt} reads): {ms[k]:.3f} ms, plain {plain_ms[k]:.1f} ms,"
+                f" bound {bnd[k][0]:.4f} ms ({bnd[k][1]}: {bnd[k][2]} B, "
+                f"{bnd[k][3]} ops)")
+        timed_shapes[label] = dict(shape=[mode, R, B, Bt], ms=ms,
+                                   plain_ms=plain_ms, bound=bnd)
+    return launches, timed_shapes
+
+
+def band_records(launches, timed_shapes, checks):
+    """The aligner kernels' entries of the kernels line: the times of the
+    main path's short-read launch, the other shapes beside them."""
+    recs = []
+    main = timed_shapes["short reads"]
+    for k in BAND_KERNELS:
+        rec = dict(name=k, route="cuda", source=BAND_SOURCE,
+                   replaces=BAND_KERNELS[k], launches=launches[k],
+                   max_abs_err=ERR[k], ms=main["ms"][k],
+                   plain_ms=main["plain_ms"][k],
+                   bound_ms=main["bound"][k][0],
+                   bound_by=main["bound"][k][1], library_ms=None,
+                   shape=main["shape"],
+                   largest_segment_bucket=dict(
+                       shape=timed_shapes["largest segment bucket"]["shape"],
+                       ms=timed_shapes["largest segment bucket"]["ms"][k],
+                       bound_ms=timed_shapes["largest segment bucket"][
+                           "bound"][k][0]),
+                   check_shapes={f"{R}x{B}": dict(
+                       reads=v["reads"], mode=v["mode"], ms=v["ms"][k],
+                       plain_ms=v["plain_ms"][k], bound_ms=v["bound"][k][0])
+                       for (R, B), v in checks.items()})
+        recs.append(rec)
+    return recs
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=1)
-    p.add_argument("--contigs", type=int, default=8)
-    p.add_argument("--phases", default="1,2,3,4,5,6",
-                   help="phases to run (the build always runs; 6 needs 5)")
+    p.add_argument("--contigs", type=int, default=4)
+    p.add_argument("--phases", default="1,2,3,4,5,6,7",
+                   help="phases to run (the build always runs; 6 and 7 "
+                        "need 5)")
     args = p.parse_args(argv)
-    phases = {int(x) for x in args.phases.split(",")}
-    if 6 in phases and 5 not in phases:
-        fail("phase 6 runs on phase 5's BAM and output: add 5 to --phases")
+    phases = args.phase_set = {int(x) for x in args.phases.split(",")}
+    if phases & {6, 7} and 5 not in phases:
+        fail("phases 6 and 7 run on phase 5's simulation: add 5 to "
+             "--phases")
 
     # the port must run with JAX and the JAX package out of reach
     sys.modules["jax"] = None
@@ -1165,6 +1695,8 @@ def main(argv=None) -> int:
     build_all()
     recs = []
     with tempfile.TemporaryDirectory(prefix="npt_smoke_") as tmp:
+        # the engine calibration's cache lives and dies with this run
+        os.environ["NPT_CNS_CALIB"] = os.path.join(tmp, "calib.json")
         if 2 in phases:
             t0 = time.perf_counter()
             kernel_checks(tmp, dev, args.seed)
@@ -1193,6 +1725,25 @@ def main(argv=None) -> int:
                                            by_path.items()}
                 rec["launches"] = sum(n[k] for n in by_path.values())
             log(f"phase 6 took {time.perf_counter() - t0:.1f} s")
+        if 7 in phases:
+            t0 = time.perf_counter()
+            checks = band_checks(dev, args.seed)
+            log(f"check aligner: all equal ({time.perf_counter() - t0:.1f} "
+                "s)")
+            t1 = time.perf_counter()
+            if 3 not in phases:
+                calib_pick(dev)
+            launches, timed_shapes = pipeline_main_path(tmp, dev, args, ctx)
+            path = "python -m nextpolish_tpu_torch run.cfg (task default)"
+            for rec in recs:
+                k = rec["name"]
+                by = rec.setdefault("launches_by_path",
+                                    {"main": rec["launches"]})
+                by[path] = launches[k]
+                rec["launches"] += launches[k]
+            recs += band_records(launches, timed_shapes, checks)
+            log(f"phase 7 took {time.perf_counter() - t0:.1f} s (the "
+                f"pipeline {time.perf_counter() - t1:.1f} s)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -267,13 +267,18 @@ class WindowWork:
 
 
 def default_engine(device=None) -> str:
-    """NPT_CNS_ENGINE wins; otherwise the device engine (the level-scan
-    kernel) on a card and the native host engine on the CPU.  No engine
-    calibration yet: on the card it would have to be measured anew."""
+    """NPT_CNS_ENGINE wins; otherwise, on a card, the MEASURED faster of
+    the device and native engines (calib.choose_engine probes both on
+    first use and caches the choice); the CPU runs native."""
     eng = os.environ.get("NPT_CNS_ENGINE")
     if eng:
         return eng
-    return "device" if resolve_device(device).type == "cuda" else "native"
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return "native"
+    from .calib import choose_engine
+
+    return choose_engine("ont", dev)
 
 
 def window_dp(work: WindowWork, read_type: str, min_cov: int,

@@ -240,7 +240,10 @@ class _Launch:
 
     def wait(self) -> np.ndarray:
         """The result bytes [B, L] (the finish thread calls this; the
-        device time is added to task1.kernel once)."""
+        time between the launch's two CUDA events is added to
+        task1.kernel once: the host's enqueue of the DP's ops plus their
+        device time, so an upper bound on the device time, which
+        chip_smoke.py measures apart as task1.dp_device_ms)."""
         if self.done is not None:
             self.done.synchronize()
             k0, k1 = self.events

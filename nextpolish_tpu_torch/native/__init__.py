@@ -591,3 +591,27 @@ def cell_index(ridx, rpos, cigar, cigar_off, cigar_len, start: int,
                        ctypes.c_longlong(start), ctypes.c_longlong(end),
                        p(ins_len))
     return ins_len
+
+
+def chain_dp(qp, rp, k: int, bw: int, max_dist: int, max_iter: int,
+             max_skip: int, avg_qspan: float):
+    """Native anchor-chaining DP (chain.cpp, mm_chain_dp semantics).
+    Anchors must be sorted by (rp, qp).  Returns (f int32 scores,
+    p int32 predecessors) or None when the native lib is unavailable."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "npt_chain_dp"):
+        return None
+    qp = np.ascontiguousarray(qp, dtype=np.int64)
+    rp = np.ascontiguousarray(rp, dtype=np.int64)
+    n = len(qp)
+    f = np.zeros(n, dtype=np.int32)
+    p = np.zeros(n, dtype=np.int32)
+    lib.npt_chain_dp(
+        qp.ctypes.data_as(ctypes.c_void_p),
+        rp.ctypes.data_as(ctypes.c_void_p),
+        ctypes.c_longlong(n), ctypes.c_int(k), ctypes.c_int(bw),
+        ctypes.c_int(max_dist), ctypes.c_int(max_iter),
+        ctypes.c_int(max_skip), ctypes.c_float(avg_qspan),
+        f.ctypes.data_as(ctypes.c_void_p),
+        p.ctypes.data_as(ctypes.c_void_p))
+    return f, p

@@ -1,6 +1,9 @@
 """Polishing cases with alignments known by construction: long reads
-(`simulate_case`) and paired-end short reads (`simulate_short_case`);
-and random sparse pileups for the chain DP alone (`random_pileup`).
+(`simulate_case`) and paired-end short reads (`simulate_short_case`), as a
+BAM (`write_case`) or as the read files of a run.cfg project
+(`write_reads`); random sparse pileups for the chain DP alone
+(`random_pileup`); and inputs of the mappers' banded DP alone
+(`band_case`).
 
 A random `truth` genome is drawn; the `draft` is the truth with
 substitutions only, so a read's exact alignment against the truth is also
@@ -14,6 +17,7 @@ numpy `default_rng(seed)`.
 """
 from __future__ import annotations
 
+import gzip
 import os
 from dataclasses import dataclass
 
@@ -117,6 +121,30 @@ def simulate_case(seed: int, n_contigs: int, contig_len, depth: float,
     return SimCase(names, truths, drafts, records)
 
 
+def long_reads(seed: int, truths: list, depth: float,
+               read_len=(3000, 12000), sub=0.03, ins=0.03, dele=0.03,
+               rev_frac=0.5) -> list:
+    """Long reads at `depth`x over given truth contigs (bytes), as
+    simulate_case draws them (lengths uniform in `read_len`, cut to the
+    contig; per-base error rates; reverse strand with probability
+    `rev_frac`): BAM record dicts named l<tid>_<k>, for write_reads."""
+    rng = np.random.default_rng(seed)
+    records = []
+    for tid, tb in enumerate(truths):
+        truth = np.frombuffer(tb, dtype=np.uint8)
+        L = len(truth)
+        mean_len = min((read_len[0] + read_len[1]) / 2, L)
+        for k in range(int(round(depth * L / mean_len))):
+            ln = min(int(rng.integers(read_len[0], read_len[1] + 1)), L)
+            s = int(rng.integers(0, L - ln + 1))
+            seq, cigar = simulate_read(rng, truth, s, ln, sub, ins, dele)
+            records.append(dict(
+                name=f"l{tid}_{k}", tid=tid, pos=s, mapq=60,
+                flag=16 if rng.random() < rev_frac else 0, cigar=cigar,
+                seq_nib=bamio.seq_to_nib(seq.tobytes())))
+    return records
+
+
 def _mutate(rng, truth: np.ndarray, rate: float) -> np.ndarray:
     """truth with a substitution at each base with probability `rate`."""
     out = truth.copy()
@@ -197,6 +225,67 @@ def write_case(case: SimCase, outdir: str) -> tuple[str, str]:
     return fa, bam
 
 
+_NIB_ASCII = np.frombuffer(b"=ACMGRSVTWYHKDBN", dtype=np.uint8)
+_COMP = bytes.maketrans(b"ACGT", b"TGCA")
+
+
+def write_reads(records: list, paths: list, fastq: bool = True) -> None:
+    """Reads (BAM record dicts, as a case holds them) as sequenced: a
+    reverse-strand read reverse complemented back, gzipped, in one
+    FASTA/FASTQ file, or for paired-end reads in two files, mate 1 and
+    mate 2 of each fragment at the same index (quality 'I' throughout).
+    The inputs of a run.cfg project."""
+    if len(paths) == 2:
+        mates = {}
+        for r in records:
+            mates.setdefault(r["name"], [None, None])[
+                0 if r["flag"] & 0x40 else 1] = r
+        groups = [[m[0] for m in mates.values()],
+                  [m[1] for m in mates.values()]]
+    else:
+        groups = [records]
+    for path, recs in zip(paths, groups):
+        with gzip.open(path, "wb", compresslevel=1) as fh:
+            for r in recs:
+                seq = _NIB_ASCII[r["seq_nib"]].tobytes()
+                if r["flag"] & 16:
+                    seq = seq.translate(_COMP)[::-1]
+                if fastq:
+                    fh.write(b"@" + r["name"].encode() + b"\n" + seq
+                             + b"\n+\n" + b"I" * len(seq) + b"\n")
+                else:
+                    fh.write(b">" + r["name"].encode() + b"\n" + seq
+                             + b"\n")
+
+
+def write_project(outdir: str, names: list, drafts: list, task: str,
+                  sgs: list | None = None, lgs: list | None = None) -> str:
+    """A run.cfg project in `outdir`: draft.fa, the paired short reads
+    `sgs` as r1/r2.fq.gz and the long reads `lgs` as lgs.fa.gz (record
+    dicts, see write_reads) with their fofns, and run.cfg with `task`
+    and workdir ./work.  Returns the path of run.cfg."""
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "draft.fa"), "wb") as fh:
+        for name, seq in zip(names, drafts):
+            fh.write(b">" + name.encode() + b"\n" + seq + b"\n")
+    cfg = [f"task = {task}", "genome = ./draft.fa", "workdir = ./work"]
+    if sgs is not None:
+        write_reads(sgs, [os.path.join(outdir, "r1.fq.gz"),
+                          os.path.join(outdir, "r2.fq.gz")])
+        with open(os.path.join(outdir, "sgs.fofn"), "w") as fh:
+            fh.write("r1.fq.gz\nr2.fq.gz\n")
+        cfg.append("sgs_fofn = ./sgs.fofn")
+    if lgs is not None:
+        write_reads(lgs, [os.path.join(outdir, "lgs.fa.gz")], fastq=False)
+        with open(os.path.join(outdir, "lgs.fofn"), "w") as fh:
+            fh.write("lgs.fa.gz\n")
+        cfg.append("lgs_fofn = ./lgs.fofn")
+    path = os.path.join(outdir, "run.cfg")
+    with open(path, "w") as fh:
+        fh.write("\n".join(cfg) + "\n")
+    return path
+
+
 def random_pileup(seed: int, n_dp: int, per: int, heavy_cells: int = 0,
                   big_counts: bool = False, rolling: bool = False):
     """A random sparse pileup for ops/chain.py: sorted cell*512+kmer keys
@@ -240,3 +329,75 @@ def random_pileup(seed: int, n_dp: int, per: int, heavy_cells: int = 0,
         cn[rng.choice(len(cn), 60, replace=False)] += 500
         total = total + 600
     return uk, cn, rk.astype(np.uint16), refkmer, total
+
+
+# the main path's scoring per mode of align/extend.py: short reads and
+# mate rescue (align/mapper.py), long-read segments and end extensions
+# (align/longread.py)
+BAND_SCORES = {
+    "local": dict(match=1, mismatch=4, gapo=6, gape=1, clip5=5, clip3=5),
+    "global": dict(match=2, mismatch=4, gapo=4, gape=2),
+    "extend": dict(match=2, mismatch=4, gapo=4, gape=2, clip5=1 << 20),
+}
+
+
+def band_case(seed: int, Bt: int, R: int, B: int, mode: str,
+              err: float = 0.06):
+    """Inputs of align/extend.py's banded DP laid out as the mappers lay
+    them out: (q [Bt, R] uint8 codes, 4 = pad; t [Bt, R+B]; qlen, tlen
+    [Bt] int32).  Each read is a piece of its reference with substitutions
+    and indels at `err` (a fifth of them indel runs of 1-4 bases); qlen
+    runs from R/2 to R, so rows past qlen occur.  Every third reference is
+    a tandem repeat of a short motif and every fifth read carries a
+    repeat-unit indel, so equal-score paths tie; every seventh read is
+    unrelated to its reference.  local: the read lies anywhere inside the
+    window; extend: it starts at the window's corner; global: the segment
+    t[x] = ref[x - B//2] of length tlen = qlen +- a few, within the band.
+    """
+    rng = np.random.default_rng(seed)
+    off = B // 2 if mode == "global" else 0
+    q = np.full((Bt, R), 4, dtype=np.uint8)
+    t = np.full((Bt, R + B), 4, dtype=np.uint8)
+    qlen = np.zeros(Bt, dtype=np.int32)
+    tlen = np.zeros(Bt, dtype=np.int32)
+    for b in range(Bt):
+        n = R + B + 8
+        if b % 3 == 0:
+            unit = rng.integers(0, 4, int(rng.integers(1, 5)))
+            ref = np.resize(unit, n).astype(np.uint8)
+        else:
+            ref = rng.integers(0, 4, n).astype(np.uint8)
+        ql = int(rng.integers(max(R // 2, 1), R + 1))
+        start = 0 if mode == "extend" else (
+            off if mode == "global" else int(rng.integers(0, max(B // 4, 1))))
+        src = ref[start:]
+        read = []
+        j = 0
+        while len(read) < ql and j < len(src):
+            r = rng.random()
+            if r < err * 0.8:
+                read.append(int(rng.integers(0, 4)))
+                j += 1
+            elif r < err * 0.9:
+                j += int(rng.integers(1, 5))  # deletion run
+            elif r < err:
+                read.extend(rng.integers(0, 4, int(rng.integers(1, 5))))
+            else:
+                read.append(int(src[j]))
+                j += 1
+        read = np.array(read[:ql], dtype=np.uint8)
+        if b % 5 == 0 and ql > 12:
+            read = np.delete(read, range(6, 8))  # a repeat-unit deletion
+        if b % 7 == 0:
+            read = rng.integers(0, 4, len(read)).astype(np.uint8)
+        ql = len(read)
+        q[b, :ql] = read
+        qlen[b] = ql
+        if mode == "global":
+            tl = min(max(1, ql + int(rng.integers(-3, 4))), R + B - off)
+            t[b, off:off + tl] = ref[off:off + tl]
+            tlen[b] = tl
+        else:
+            t[b] = ref[:R + B]
+            tlen[b] = R + B
+    return q, t, qlen, tlen

@@ -209,8 +209,9 @@ def test_poa_copies_match(seed):
 
 
 def test_default_engine_and_device(monkeypatch):
-    """NPT_CNS_ENGINE wins; otherwise the CPU runs the native engine and
-    asking for cuda without a card raises instead of falling back."""
+    """NPT_CNS_ENGINE wins; otherwise the CPU runs the native engine, a
+    card the engine calib measures faster, and asking for cuda without a
+    card raises instead of falling back."""
     from nextpolish_tpu_torch.device import resolve_device
     from nextpolish_tpu_torch.runtime.budget import (
         device_free_bytes,
@@ -225,7 +226,7 @@ def test_default_engine_and_device(monkeypatch):
     assert device_free_bytes("cpu") > 0
     assert abs(device_free_bytes("cpu") - host_available_bytes()) < 2 ** 30
     if torch.cuda.is_available():
-        assert twin.default_engine("cuda") == "device"
+        assert twin.default_engine("cuda") in ("device", "native")
     else:
         with pytest.raises(RuntimeError):
             resolve_device("cuda")

@@ -2,8 +2,11 @@
 their plain PyTorch versions (the engine-2 level scan: the chain and the
 winners; task 1's chain DP: the forward scan and the traceback), the
 pinned-buffer launch paths, the dense chain batch (task 2's no-depth
-rescue), task 1's window route against its single launch, and worker2 /
-worker1 -t 1 / worker1 -t 2 --device cuda against --device cpu.
+rescue), task 1's window route against its single launch, the mappers'
+banded DP and traceback (band_align, band_traceback) with a forced
+sub-batch split, engine calibration on the card, and worker2 / worker1
+-t 1 / worker1 -t 2 / map_short_batch / the run.cfg pipeline --device
+cuda against --device cpu.
 
 Every test here is marked `gpu` and skips without a card; whether a card
 is there is decided in a fixture, at run time.  The file imports nothing
@@ -401,3 +404,154 @@ def test_worker1_task2_cuda_matches_cpu(tmp_path, cuda_device):
                          str(tmp_path / "cpu.fa"), "--device", "cpu"]) == 0
     assert (tmp_path / "gpu.fa").read_bytes() == \
         (tmp_path / "cpu.fa").read_bytes()
+
+
+# ---------------------------------------------------------------------------
+# the aligner: band_align / band_traceback (align/extend.py,
+# csrc/band_align.cu), the mapper and the run.cfg pipeline
+# ---------------------------------------------------------------------------
+
+def _band_launches():
+    from nextpolish_tpu_torch.align import extend as text
+
+    return (text.band_align_core.launches, text.band_traceback.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["local", "global", "extend"])
+@pytest.mark.parametrize("R,B,Bt", [(150, 32, 300), (150, 1150, 9),
+                                    (300, 64, 40)])
+def test_band_kernels_match_plain_on_card(cuda_device, mode, R, B, Bt):
+    """Both aligner kernels against their plain versions on the card, byte
+    for byte (tb, scores, end cells; ops and final cells), one launch
+    each."""
+    from nextpolish_tpu_torch.align import extend as text
+
+    q, t, qlen, tlen = (torch.from_numpy(x).to(cuda_device)
+                        for x in sim.band_case(B + R, Bt, R, B, mode))
+    kw = sim.BAND_SCORES[mode]
+    before = _band_launches()
+    got = text.band_align_core(q, t, qlen, tlen, mode=mode, **kw)
+    ops = text.band_traceback(*got[:1], got[2], got[3])
+    assert _band_launches() == (before[0] + 1, before[1] + 1)
+    want = text.band_align_plain(q, t, qlen, tlen, mode=mode, **kw)
+    ops_p = text.band_traceback_plain(want[0], want[2], want[3])
+    torch.cuda.synchronize(cuda_device)
+    for g, w in zip(got + ops, want + ops_p):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_band_sub_batch_split_on_card(cuda_device, monkeypatch):
+    """A traceback budget of 64 reads splits 300 reads into 5 launches of
+    each kernel; the outputs equal the CPU's unsplit run."""
+    from nextpolish_tpu_torch.align import extend as text
+
+    q, t, qlen, tlen = sim.band_case(7, 300, 150, 32, "local")
+    kw = sim.BAND_SCORES["local"]
+    want = text.band_align_ops(q, t, qlen, tlen, device="cpu", **kw)
+    monkeypatch.setattr(text, "TB_BUDGET_BYTES", 64 * 150 * 32)
+    before = _band_launches()
+    got = text.band_align_ops(q, t, qlen, tlen, device=cuda_device, **kw)
+    assert _band_launches() == (before[0] + 5, before[1] + 5)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_band_kernels_refuse_bad_input(cuda_device):
+    from nextpolish_tpu_torch.align import extend as text
+
+    q, t, qlen, tlen = (torch.from_numpy(x).to(cuda_device)
+                        for x in sim.band_case(1, 4, 50, 32, "local"))
+    with pytest.raises(ValueError):
+        text.band_align_core(q.long(), t, qlen, tlen)
+    with pytest.raises(ValueError):
+        text.band_align_core(q, t.cpu(), qlen, tlen)
+    wide = torch.zeros((4, 50 + 2049), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        text.band_align_core(q, wide, qlen, tlen)
+
+
+@pytest.mark.gpu
+def test_map_short_batch_cuda_matches_cpu(cuda_device):
+    from nextpolish_tpu_torch.align import mapper
+    from nextpolish_tpu_torch.align.index import GenomeIndex
+
+    case = sim.simulate_short_case(51, [20000, 5000], 10)
+    idx = GenomeIndex.build(list(zip(case.names, case.truths)), k=17, w=7)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    nib = np.frombuffer(b"=ACMGRSVTWYHKDBN", np.uint8)
+    seqs = []
+    for r in case.records:
+        s = nib[r["seq_nib"]].tobytes()
+        seqs.append(s.translate(comp)[::-1] if r["flag"] & 16 else s)
+    seqs = seqs[: len(seqs) // 2 * 2]
+    before = _band_launches()
+    got = mapper.map_short_batch(idx, seqs, paired=True, device=cuda_device)
+    assert _band_launches()[0] > before[0]
+    want = mapper.map_short_batch(idx, seqs, paired=True, device="cpu")
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for k in w:
+            if isinstance(w[k], np.ndarray):
+                assert np.array_equal(g[k], w[k]), k
+            else:
+                assert g[k] == w[k], k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("project", ["task12", "task5"])
+def test_run_cfg_cuda_matches_cpu(tmp_path, cuda_device, project):
+    """python -m nextpolish_tpu_torch run.cfg --device cuda writes the
+    --device cpu run's genome.nextpolish.fasta and .stat."""
+    from nextpolish_tpu_torch.__main__ import main
+
+    if project == "task12":
+        case = sim.simulate_short_case(53, [15000, 4000], 30)
+        kw = dict(task="12", sgs=case.records)
+    else:
+        case = sim.simulate_case(55, 2, [9000, 5000], 15,
+                                 read_len=(1500, 4000))
+        kw = dict(task="5", lgs=case.records)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = sim.write_project(str(tmp_path / dev), case.names,
+                                case.drafts, **kw)
+        before = _band_launches()
+        assert main([cfg, "--device", dev]) == 0
+        if dev == "cuda":
+            assert _band_launches()[0] > before[0]
+        asm = tmp_path / dev / "work" / "genome.nextpolish.fasta"
+        out[dev] = (asm.read_bytes(),
+                    (tmp_path / dev / "work" /
+                     "genome.nextpolish.fasta.stat").read_bytes())
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.gpu
+def test_calib_on_card(cuda_device, tmp_path, monkeypatch):
+    """choose_engine measures both engines on the card, returns one of
+    them and caches it; an error of the device probe raises."""
+    from nextpolish_tpu_torch.models.cns import calib
+
+    monkeypatch.setenv("NPT_CNS_CALIB", str(tmp_path / "calib.json"))
+    monkeypatch.setattr(calib, "_CHOSEN", {})
+    eng = calib.choose_engine("ont", cuda_device)
+    assert eng in ("device", "native")
+    key = calib._cache_key("ont", cuda_device)
+    assert key.startswith(f"v{calib.CALIB_VERSION}/cuda/")
+    import json
+
+    rec = json.loads((tmp_path / "calib.json").read_text())[key]
+    assert rec["engine"] == eng and rec["device_bases_per_s"] > 0
+    assert calib.choose_engine("ont", cuda_device) == eng
+
+    def broken(*a, **k):
+        raise RuntimeError("probe launch failed")
+
+    monkeypatch.setattr(tdd, "_run_batch", broken)
+    monkeypatch.setattr(calib, "_CHOSEN", {})
+    (tmp_path / "calib.json").unlink()
+    with pytest.raises(RuntimeError, match="probe launch failed"):
+        calib.choose_engine("ont", cuda_device)

@@ -1,7 +1,9 @@
 """The port stands alone: every module of nextpolish_tpu_torch imports
-(kmer_count and parallel/shard among them), and the CPU slices (worker2,
-worker1 -t 1, then -t 2 on its output) run end to end, with `jax` and
-`nextpolish_tpu` made unimportable in the process."""
+(kmer_count, parallel/shard, the aligner, the pipeline and calib among
+them), and the CPU slices (worker2, worker1 -t 1, then -t 2 on its output,
+and the run.cfg pipeline through `python -m nextpolish_tpu_torch`) run end
+to end, with `jax` and `nextpolish_tpu` made unimportable in the
+process."""
 import pathlib
 import re
 import subprocess
@@ -22,6 +24,8 @@ mods = sorted(
 for m in mods:
     importlib.import_module(m.removesuffix(".__init__"))
 from nextpolish_tpu_torch import sim, worker1, worker2
+from nextpolish_tpu_torch.__main__ import main as run_cfg
+from nextpolish_tpu_torch.align.extend import band_align_core, band_traceback
 from nextpolish_tpu_torch.models.cns.level_scan import level_chain, level_winners
 from nextpolish_tpu_torch.ops.chain import forward_states, traceback_batch
 os.environ["NPT_CNS_ENGINE"] = "device"
@@ -46,6 +50,14 @@ with tempfile.TemporaryDirectory() as d:
                          "--device", "cpu"]) == 0
     lines2 = open(out2, "rb").read().split(b"\n")
     assert [len(x) for x in lines2[1::2]] == [len(x) for x in lines[1::2]]
+    # the run.cfg pipeline, task 12, on the built-in mapper
+    proj = os.path.join(d, "proj")
+    sim.write_project(proj, case.names, case.drafts, "12", sgs=case.records)
+    assert run_cfg([os.path.join(proj, "run.cfg"), "--device", "cpu"]) == 0
+    asm = open(os.path.join(proj, "work", "genome.nextpolish.fasta"),
+               "rb").read().split(b"\n")
+    assert [len(x) for x in asm[1::2]] == [len(x) for x in lines[1::2]]
+assert band_align_core.launches == 0 and band_traceback.launches == 0
 assert level_chain.launches == 0 and level_winners.launches == 0
 assert forward_states.launches == 0 and traceback_batch.launches == 0
 assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items() if v is not None)
