@@ -52,8 +52,10 @@ Phases (any failed check exits non-zero; nothing is caught):
              every launch's buffer, recorded on the way, must give the same
              result bytes through the plain versions on the card; then the
              differences to the truth before and after polishing, and each
-             kernel's time on the largest launch beside its plain version
-             and its bounds; the largest launch's whole DP (both kernels
+             kernel's time on the largest launch (CUDA events, and its
+             device time as the aligner's kernels take it) beside its
+             plain version and its bounds; the largest launch's whole DP
+             (both kernels
              and the torch ops) re-run twice under torch.profiler, its
              summed kernel time printed as task1.dp_device_ms (the two
              readings must agree within 5%); with phase 7, the reads of
@@ -75,11 +77,24 @@ Phases (any failed check exits non-zero; nothing is caught):
              task 1;
   7. main    the aligner and the run.cfg pipeline: (a) both aligner
              kernels against their plain versions on the card, byte for
-             byte, in local, global and extend modes at the main path's
-             shapes (R, B) = (150, 32) with 8,192 reads, (150, 1,150)
+             byte, in local, global and extend modes at the shapes of
+             bench_band.SHAPES, the main path's (R, B) = (150, 32) with
+             8,192 reads, (150, 1,150)
              (mate rescue), (4,096, 512) (the largest long-read segment
-             bucket) and (1,000, 64) (end extensions), reads built to tie,
-             each shape timed beside its plain version and its bound;
+             bucket) and (1,000, 64) (end extensions), and at (150, 512)
+             with 256 reads and (150, 544) (band_align's widest warp-route
+             band, at the read count from which bands over 256 take that
+             route, and the first band always on its block route), reads
+             built to tie,
+             and in each shape's main-path mode reads with one long indel
+             (walks across many band columns); each shape timed (device
+             time, launches queued behind a spin kernel; plain CUDA
+             events around the launches beside) beside its plain version,
+             its bytes/operations bound and its dependency
+             bound (band_align: R rows of a neighbour exchange and a
+             log2(B/K)-round shuffle scan; band_traceback: the longest
+             walk, a dependent shared-memory load a step; cycles measured
+             by extend.step_cycles, at the SM clock read beside it);
              (b) `python -m nextpolish_tpu_torch run.cfg --device cuda`
              with task = default (5, 1, 2) on phase 5's genome with the
              chromosome cut to its first 1,000,000 bp: phase 5's PE150
@@ -89,8 +104,8 @@ Phases (any failed check exits non-zero; nothing is caught):
              FASTA.gz; the built-in mapper runs on the card every round.
              Printed: the stage walls (mapping and polish per task), the
              kernel launches of every kernel on the path, the aligner
-             kernels' times at the short-read shape and the largest
-             long-read bucket, calib's pick with both rates,
+             kernels' times (as in (a)) at the short-read shape and the
+             largest long-read bucket, calib's pick with both rates,
              max_memory_allocated, and the differences to the truth after
              every round; the aligner launches, recorded on the way, are
              re-run through the plain versions on the card (the first 20,
@@ -110,8 +125,10 @@ always runs; 6 and 7 need 5).
 
 The last three lines are the kernels' JSON record (the level scan's two
 kernels, one port of the TPU kernel; task 1's two chain kernels; the
-aligner's two kernels; with their launches on each path), the card's
-name and power limit, and
+aligner's two kernels; with their launches on each path; each entry's
+`timer` says what its `ms` is: CUDA events around the wrapper calls, or,
+for the aligner's kernels, the device time), the card's name and power
+limit, and
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of
 the JAX package, and exits non-zero without a result when no CUDA device
 is usable.
@@ -148,10 +165,12 @@ BAND_KERNELS = {  # name -> the JAX function it replaces (XLA, not Pallas)
     "band_traceback": "nextpolish_tpu/align/extend.py:164",
 }
 BAND_SOURCE = "nextpolish_tpu_torch/csrc/band_align.cu"
-# phase 7(a): (R, B, reads, mode) of the main path's launches: short
-# reads, mate rescue, the largest long-read segment bucket, end extensions
-BAND_SHAPES = ((150, 32, 8192, "local"), (150, 1150, 256, "local"),
-               (4096, 512, 16, "global"), (1000, 64, 512, "extend"))
+# what the `ms` of a kernels-line entry is (its `timer`): CUDA events
+# around the wrapper calls, or the aligner kernels' device time
+# (bench_band.device_ms), which leaves out the wrapper's host time that
+# events around a 10-40 us launch hold; the chain kernels carry both
+EVENTS = "CUDA events around the wrapper calls"
+DEVICE = "device time: launches queued behind a spin kernel"
 PIPE_CHROM_BASES = 1_000_000  # phase 7(b)'s cut of the chromosome
 PIPE_LONG_DEPTH = 30
 REPLAY_BUDGET_S = 90.0  # phase 7(b)'s plain re-runs past the required ones
@@ -241,9 +260,12 @@ def ptxas_by_kernel(text: str) -> dict:
             k = re.search(r"(level_chain_kernel|level_winners_kernel|"
                           r"smem_step_probe|fwd_chunks|fwd_up|fwd_down|"
                           r"fwd_replay|tb_maps|tb_walk|tb_replay|"
-                          r"band_align_kernel|band_traceback_kernel)"
-                          r"(?:IL[bi](\d)E)?", m.group(1))
-            cur = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                          r"band_align_kernel|band_traceback_kernel|"
+                          r"band_step_probe)"
+                          r"(?:I((?:L[bi]\d+E)+)E)?", m.group(1))
+            args = (",".join(re.findall(r"L[bi](\d+)E", k.group(2)))
+                    if k and k.group(2) else "")
+            cur = (k.group(1) + (f"<{args}>" if args else "")
                    if k else m.group(1))
             out[cur] = []
         elif cur and ("spill" in line or "registers" in line):
@@ -398,19 +420,6 @@ def sm_clock_mhz() -> float:
     return float(r.stdout.strip().splitlines()[0])
 
 
-def time_ms(fn, dev, reps):
-    import torch
-
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize(dev)
-    return t0.elapsed_time(t1) / reps
-
-
 def calib_pick(dev) -> dict:
     """The engine calibration on this card (models/cns/calib.py, cached
     in NPT_CNS_CALIB for the rest of the run): its pick and both probe
@@ -434,6 +443,7 @@ def main_path(tmp, dev, args):
     import torch
 
     from nextpolish_tpu_torch import sim, worker2
+    from nextpolish_tpu_torch.bench_band import time_ms
     from nextpolish_tpu_torch.models.cns import batcher as batcher_mod
     from nextpolish_tpu_torch.models.cns.device_dp import (
         READ_TYPE_ID,
@@ -649,7 +659,7 @@ def main_path(tmp, dev, args):
         rec = dict(name=k, route="cuda", source=SOURCE, replaces=TPU_KERNEL,
                    launches=launches[k], max_abs_err=ERR[k], ms=ms[k],
                    plain_ms=plain_ms[k], bound_ms=tb[k][0],
-                   bound_by=tb[k][1], library_ms=None,
+                   bound_by=tb[k][1], library_ms=None, timer=EVENTS,
                    full_group_ms=full_ms[k],
                    full_group_bound_ms=fb[k][0])
         if k == "level_chain":
@@ -937,6 +947,7 @@ def task1_main_path(tmp, dev, args, ctx):
     import torch
 
     from nextpolish_tpu_torch import sim, worker1
+    from nextpolish_tpu_torch.bench_band import device_ms, time_ms
     from nextpolish_tpu_torch.models import score_chain as sc
     from nextpolish_tpu_torch.models.cns import level_scan as ls
     from nextpolish_tpu_torch.ops import chain as tch
@@ -1038,6 +1049,9 @@ def task1_main_path(tmp, dev, args, ctx):
     fwd(A, s0), tb(P, b_end)  # warm-up
     ms = {"chain_forward": time_ms(lambda: fwd(A, s0), dev, 5),
           "chain_traceback": time_ms(lambda: tb(P, b_end), dev, 5)}
+    # on the aligner kernels' timer too, so all four compare on one
+    dev_ms = {"chain_forward": device_ms(lambda: fwd(A, s0), dev, 5),
+              "chain_traceback": device_ms(lambda: tb(P, b_end), dev, 5)}
     plain_ms = {
         "chain_forward": time_ms(lambda: tch.forward_states_plain(A, s0),
                                  dev, 1),
@@ -1073,7 +1087,8 @@ def task1_main_path(tmp, dev, args, ctx):
     recs = []
     for k in CHAIN_KERNELS:
         log(f"task1: {k} on the largest launch (B={B}, L={L}): "
-            f"{ms[k]:.3f} ms per launch, plain {plain_ms[k]:.1f} ms; bound "
+            f"{ms[k]:.3f} ms per launch (CUDA events; device time "
+            f"{dev_ms[k]:.4f} ms), plain {plain_ms[k]:.1f} ms; bound "
             f"{bnd[k][0]:.4f} ms ({bnd[k][1]}: {bnd[k][2]} B, {bnd[k][3]} "
             f"ops); dependency bound {dep_ms:.4f} ms ({step} cycles a step "
             f"at {mhz:.0f} MHz)")
@@ -1081,7 +1096,8 @@ def task1_main_path(tmp, dev, args, ctx):
                          replaces=CHAIN_KERNELS[k], launches=launches[k],
                          max_abs_err=ERR[k], ms=ms[k], plain_ms=plain_ms[k],
                          bound_ms=bnd[k][0], bound_by=bnd[k][1],
-                         library_ms=None, dependency_bound_ms=dep_ms,
+                         library_ms=None, timer=EVENTS,
+                         device_ms=dev_ms[k], dependency_bound_ms=dep_ms,
                          cells=B * L))
     return recs
 
@@ -1281,25 +1297,42 @@ def band_launches():
             "band_traceback": text.band_traceback.launches}
 
 
-def band_bounds(q, t, ops, R: int, B: int) -> dict:
+def band_bounds(q, t, ops, R: int, B: int, cycles, mhz: float) -> dict:
     """Least time of each aligner kernel's work on an H100: bytes moved
     (each input read once, each output written once) over HBM bandwidth,
-    and int32 operations over the non-tensor rate; the larger bounds it.
+    and int32 operations over the non-tensor rate; the larger is bound_ms.
     band_align: q, t, qlen, tlen in; tb (a byte a cell), best and the end
     cell out; about 30 operations a cell (the substitution score, E, the
     diagonal, the floor, the decay, one max of the scan, F, the open bits,
     H, the source and the byte, the row maximum, Hfin).  band_traceback:
     the cells this run's walks visit (the ops emitted, plus the end step)
     read once, the end cells in, the packed ops and final cells out;
-    about 10 operations a step.  Returns {kernel: (ms, bound_by, bytes,
-    ops)}."""
+    about 10 operations a step.  Beside them the dependency bound, from
+    `cycles` = (shuffle-scan round, walk step) as extend.step_cycles
+    measures them at `mhz`: band_align's R dependent rows, each one
+    neighbour exchange and a log2(B/K)-round shuffle scan (K cells a
+    lane as the launch's route has them: the smallest power of two with
+    32K >= B on the warp route, 4 on the block route), one round each;
+    band_traceback's
+    longest walk of this launch (its nonzero ops plus the end step), one
+    dependent shared-memory load and state update a step.  Returns
+    {kernel: (ms, bound_by, bytes, ops, dependency ms)}, ms the larger of
+    bytes and operations."""
+    import numpy as np
+
     Bt = q.shape[0]
-    steps = int((ops > 0).sum()) + Bt
+    fields = (ops[:, :, None] >> (2 * np.arange(4, dtype=np.uint8))) & 3
+    per_read = (fields > 0).reshape(Bt, -1).sum(axis=1)
+    steps = int(per_read.sum()) + Bt
+    warp = B <= 256 or (B <= 512 and Bt >= 256)  # band_align.cu's routes
+    K = 1 << (-(-B // 32) - 1).bit_length() if warp else 4
+    rounds = 1 + max(0, (-(-B // K) - 1).bit_length())
+    dep = {"band_align": R * rounds * cycles[0],
+           "band_traceback": (int(per_read.max()) + 1) * cycles[1]}
     work = {
         "band_align": (Bt * (R + (R + B) + 8) + Bt * R * B + Bt * 12,
                        Bt * R * B * 30),
-        "band_traceback": (steps + Bt * 8 + ops.size // 4 + Bt * 8,
-                           steps * 10),
+        "band_traceback": (steps + Bt * 8 + ops.size + Bt * 8, steps * 10),
     }
     out = {}
     for k, (nbytes, nops) in work.items():
@@ -1307,8 +1340,41 @@ def band_bounds(q, t, ops, R: int, B: int) -> dict:
         t_ops = nops / H100_INT_OPS_PER_S * 1e3
         out[k] = (max(t_bytes, t_ops),
                   "bytes" if t_bytes >= t_ops else "operations", nbytes,
-                  nops)
+                  nops, dep[k] / (mhz * 1e6) * 1e3)
     return out
+
+
+def band_cycles(dev):
+    """(scan-round cycles, walk-step cycles) from the probe, and the SM
+    clock read beside it."""
+    from nextpolish_tpu_torch.align import extend as text
+
+    cycles = text.step_cycles(dev)
+    return cycles, sm_clock_mhz()
+
+
+def band_times(align, walk, dev, reps=20):
+    """Each aligner kernel's time per launch: its device time (bench_band.
+    device_ms: `reps` launches queued behind a spin kernel, so the
+    wrapper's host time between them stays out), and plain CUDA events
+    around `reps` launches (which hold that host time)."""
+    from nextpolish_tpu_torch.bench_band import device_ms, time_ms
+
+    fns = {"band_align": align, "band_traceback": walk}
+    return ({k: device_ms(fn, dev, reps) for k, fn in fns.items()},
+            {k: time_ms(fn, dev, reps) for k, fn in fns.items()})
+
+
+def log_band_time(prefix, ms, ev_ms, plain_ms, bnd, cycles, mhz):
+    for k in BAND_KERNELS:
+        log(f"{prefix} {k}: {ms[k]:.4f} ms (device time; CUDA events "
+            f"{ev_ms[k]:.4f} ms), plain {plain_ms[k]:.1f} ms, "
+            f"bound {bnd[k][0]:.4f} ms ({bnd[k][1]}: {bnd[k][2]} B, "
+            f"{bnd[k][3]} ops), dependency bound {bnd[k][4]:.4f} ms "
+            f"({cycles[k == 'band_traceback']} cycles a "
+            f"{'step' if k == 'band_traceback' else 'round'} at {mhz:.0f} "
+            f"MHz); largest of the three "
+            f"{max(bnd[k][0], bnd[k][4]):.4f} ms")
 
 
 def hold_band(dev, q, t, qlen, tlen, kw, label, want=None):
@@ -1341,33 +1407,43 @@ def hold_band(dev, q, t, qlen, tlen, kw, label, want=None):
 
 def band_checks(dev, seed):
     """Phase 7(a): both aligner kernels against their plain versions at
-    the main path's shapes, every mode; each shape's main-path mode
-    timed."""
+    the main path's shapes, every mode, and on reads with one long indel
+    (sim.band_indel_case) in each shape's main-path mode; each shape's
+    main-path mode timed."""
     import torch
 
     from nextpolish_tpu_torch import sim
     from nextpolish_tpu_torch.align import extend as text
+    from nextpolish_tpu_torch.bench_band import SHAPES, time_ms
 
+    cycles, mhz = band_cycles(dev)
     timings = {}
-    for R, B, Bt, main_mode in BAND_SHAPES:
+    for R, B, Bt, main_mode in SHAPES:
         for mode in ("local", "global", "extend"):
             kw = dict(mode=mode, **sim.BAND_SCORES[mode])
-            q, t, qlen, tlen = (torch.from_numpy(x).to(dev) for x in
-                                sim.band_case(seed + R + B, Bt, R, B, mode))
-            t0 = time.perf_counter()
-            core, walk = hold_band(dev, q, t, qlen, tlen, kw,
-                                   f"{mode}, R={R}, B={B}, {Bt} reads")
-            log(f"check aligner {mode:6s} R={R:4d} B={B:4d} reads={Bt:4d}: "
-                f"both kernels equal to plain "
-                f"({time.perf_counter() - t0:.1f} s)")
+            cases = [("band_case", sim.band_case)]
+            if mode == main_mode:
+                cases.append(("band_indel_case", sim.band_indel_case))
+            for name, make in cases:
+                q, t, qlen, tlen = (torch.from_numpy(x).to(dev) for x in
+                                    make(seed + R + B, Bt, R, B, mode))
+                t0 = time.perf_counter()
+                core, walk = hold_band(dev, q, t, qlen, tlen, kw,
+                                       f"{mode}, R={R}, B={B}, {Bt} reads, "
+                                       f"{name}")
+                log(f"check aligner {mode:6s} R={R:4d} B={B:4d} "
+                    f"reads={Bt:4d} {name}: both kernels equal to plain "
+                    f"({time.perf_counter() - t0:.1f} s)")
             if mode != main_mode:
                 continue
-            ms = {"band_align": time_ms(
-                      lambda: text.band_align_core(q, t, qlen, tlen, **kw),
-                      dev, 5),
-                  "band_traceback": time_ms(
-                      lambda: text.band_traceback(core[0], core[2], core[3]),
-                      dev, 5)}
+            # timed on band_case's inputs
+            q, t, qlen, tlen = (torch.from_numpy(x).to(dev) for x in
+                                sim.band_case(seed + R + B, Bt, R, B, mode))
+            core = text.band_align_core(q, t, qlen, tlen, **kw)
+            walk = text.band_traceback(core[0], core[2], core[3])
+            ms, ev_ms = band_times(
+                lambda: text.band_align_core(q, t, qlen, tlen, **kw),
+                lambda: text.band_traceback(core[0], core[2], core[3]), dev)
             plain_ms = {
                 "band_align": time_ms(
                     lambda: text.band_align_plain(q, t, qlen, tlen, **kw),
@@ -1375,13 +1451,11 @@ def band_checks(dev, seed):
                 "band_traceback": time_ms(
                     lambda: text.band_traceback_plain(core[0], core[2],
                                                       core[3]), dev, 1)}
-            bnd = band_bounds(q, t, walk[0].cpu().numpy(), R, B)
-            for k in BAND_KERNELS:
-                log(f"check aligner {k} at ({R}, {B}) x {Bt} {mode}: "
-                    f"{ms[k]:.3f} ms, plain {plain_ms[k]:.1f} ms, bound "
-                    f"{bnd[k][0]:.4f} ms ({bnd[k][1]}: {bnd[k][2]} B, "
-                    f"{bnd[k][3]} ops)")
-            timings[(R, B)] = dict(reads=Bt, mode=mode, ms=ms,
+            bnd = band_bounds(q, t, walk[0].cpu().numpy(), R, B, cycles,
+                              mhz)
+            log_band_time(f"check aligner at ({R}, {B}) x {Bt} {mode}:", ms,
+                          ev_ms, plain_ms, bnd, cycles, mhz)
+            timings[(R, B)] = dict(reads=Bt, mode=mode, ms=ms, event_ms=ev_ms,
                                    plain_ms=plain_ms, bound=bnd)
     return timings
 
@@ -1485,6 +1559,7 @@ def pipeline_main_path(tmp, dev, args, ctx):
     from nextpolish_tpu_torch import pipeline as tpipe
     from nextpolish_tpu_torch import sim
     from nextpolish_tpu_torch.align import extend as text
+    from nextpolish_tpu_torch.bench_band import time_ms
     from nextpolish_tpu_torch.models.cns import level_scan as ls
 
     case = ctx["case"]
@@ -1607,18 +1682,16 @@ def pipeline_main_path(tmp, dev, args, ctx):
     check(short is not None and longest is not None,
           "no short-read or segment launch recorded")
     timed_shapes = {}
+    cycles, mhz = band_cycles(dev)
     for label, c in (("short reads", short), ("largest segment bucket",
                                               longest)):
         mode, R, B, Bt = shape_of(c)
         q, t, qlen, tlen = (x.to(dev) for x in c["inputs"])
         core, walk = hold_band(dev, q, t, qlen, tlen, c["kw"], label,
                                want=c["core"] + c["walk"])
-        ms = {"band_align": time_ms(
-                  lambda: text.band_align_core(q, t, qlen, tlen, **c["kw"]),
-                  dev, 5),
-              "band_traceback": time_ms(
-                  lambda: text.band_traceback(core[0], core[2], core[3]),
-                  dev, 5)}
+        ms, ev_ms = band_times(
+            lambda: text.band_align_core(q, t, qlen, tlen, **c["kw"]),
+            lambda: text.band_traceback(core[0], core[2], core[3]), dev)
         plain_ms = {
             "band_align": time_ms(
                 lambda: text.band_align_plain(q, t, qlen, tlen, **c["kw"]),
@@ -1626,14 +1699,13 @@ def pipeline_main_path(tmp, dev, args, ctx):
             "band_traceback": time_ms(
                 lambda: text.band_traceback_plain(core[0], core[2], core[3]),
                 dev, 1)}
-        bnd = band_bounds(q, t, walk[0].cpu().numpy(), R, B)
-        for k in BAND_KERNELS:
-            log(f"pipeline: {k} on a {label} launch ({mode}, R={R}, B={B},"
-                f" {Bt} reads): {ms[k]:.3f} ms, plain {plain_ms[k]:.1f} ms,"
-                f" bound {bnd[k][0]:.4f} ms ({bnd[k][1]}: {bnd[k][2]} B, "
-                f"{bnd[k][3]} ops)")
+        bnd = band_bounds(q, t, walk[0].cpu().numpy(), R, B, cycles, mhz)
+        log_band_time(f"pipeline: on a {label} launch ({mode}, R={R}, "
+                      f"B={B}, {Bt} reads):", ms, ev_ms, plain_ms, bnd,
+                      cycles, mhz)
         timed_shapes[label] = dict(shape=[mode, R, B, Bt], ms=ms,
-                                   plain_ms=plain_ms, bound=bnd)
+                                   event_ms=ev_ms, plain_ms=plain_ms,
+                                   bound=bnd)
     return launches, timed_shapes
 
 
@@ -1649,15 +1721,21 @@ def band_records(launches, timed_shapes, checks):
                    plain_ms=main["plain_ms"][k],
                    bound_ms=main["bound"][k][0],
                    bound_by=main["bound"][k][1], library_ms=None,
+                   timer=DEVICE, dependency_bound_ms=main["bound"][k][4],
                    shape=main["shape"],
                    largest_segment_bucket=dict(
                        shape=timed_shapes["largest segment bucket"]["shape"],
                        ms=timed_shapes["largest segment bucket"]["ms"][k],
                        bound_ms=timed_shapes["largest segment bucket"][
-                           "bound"][k][0]),
+                           "bound"][k][0],
+                       dependency_bound_ms=timed_shapes[
+                           "largest segment bucket"]["bound"][k][4]),
+                   event_ms=main["event_ms"][k],
                    check_shapes={f"{R}x{B}": dict(
                        reads=v["reads"], mode=v["mode"], ms=v["ms"][k],
-                       plain_ms=v["plain_ms"][k], bound_ms=v["bound"][k][0])
+                       event_ms=v["event_ms"][k],
+                       plain_ms=v["plain_ms"][k], bound_ms=v["bound"][k][0],
+                       dependency_bound_ms=v["bound"][k][4])
                        for (R, B), v in checks.items()})
         recs.append(rec)
     return recs

@@ -239,20 +239,29 @@ def build() -> dict:
     return nvcc.build(_SRC, "band_align")
 
 
+def bind(path: str):
+    """Load a build of csrc/band_align.cu (any version with its C
+    interface) and declare its entry points."""
+    lib = ctypes.CDLL(path)
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.npt_band_align.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
+                                   i, i, p, p, p, p, p]
+    lib.npt_band_align.restype = i
+    lib.npt_band_traceback.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
+    lib.npt_band_traceback.restype = i
+    lib.npt_band_error_string.argtypes = [i]
+    lib.npt_band_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "npt_band_step_cycles"):
+        lib.npt_band_step_cycles.argtypes = [i, p, p]
+        lib.npt_band_step_cycles.restype = i
+    return lib
+
+
 def _load():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build()["path"])
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.npt_band_align.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
-                                       i, i, p, p, p, p, p]
-        lib.npt_band_align.restype = i
-        lib.npt_band_traceback.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
-        lib.npt_band_traceback.restype = i
-        lib.npt_band_error_string.argtypes = [i]
-        lib.npt_band_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = bind(build()["path"])
     return _LIB
 
 
@@ -342,6 +351,22 @@ def band_traceback(tb, end_i, end_c):
 
 band_align_core.launches = 0
 band_traceback.launches = 0
+
+
+def step_cycles(device, steps: int = 1 << 16) -> tuple[int, int]:
+    """SM cycles of one shuffle-scan round (a __shfl_up_sync and a max)
+    and of one traceback step (a dependent shared-memory byte load that
+    picks the next address), measured on the card by a one-warp probe:
+    the floors of band_align's row step and band_traceback's walk step.
+    A measurement, not part of the alignment."""
+    dev = torch.device(device)
+    out = torch.zeros(3, dtype=torch.int64, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        rc = lib.npt_band_step_cycles(
+            steps, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, rc, "band_step_probe")
+    return int(out[0]), int(out[1])
 
 
 # ---------------------------------------------------------------------------

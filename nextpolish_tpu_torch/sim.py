@@ -401,3 +401,42 @@ def band_case(seed: int, Bt: int, R: int, B: int, mode: str,
             t[b] = ref[:R + B]
             tlen[b] = R + B
     return q, t, qlen, tlen
+
+
+def band_indel_case(seed: int, Bt: int, R: int, B: int, mode: str):
+    """band_case's layout with one long indel a read: even reads lose a
+    run of B/8 to B/2 - 1 reference bases halfway along, odd reads
+    gain a random run of that length there, so the traceback's walk moves
+    across many band columns (deletions to the left, insertions to the
+    right).  Reads are otherwise exact copies; qlen runs from 3R/4 to R."""
+    rng = np.random.default_rng(seed)
+    off = B // 2 if mode == "global" else 0
+    q = np.full((Bt, R), 4, dtype=np.uint8)
+    t = np.full((Bt, R + B), 4, dtype=np.uint8)
+    qlen = np.zeros(Bt, dtype=np.int32)
+    tlen = np.zeros(Bt, dtype=np.int32)
+    for b in range(Bt):
+        ref = rng.integers(0, 4, R + B + 8).astype(np.uint8)
+        ql = int(rng.integers(max(3 * R // 4, 1), R + 1))
+        n = int(rng.integers(max(B // 8, 1), max(B // 2, 2)))
+        start = off if mode == "global" else (
+            0 if mode == "extend" else int(rng.integers(0, max(B // 4, 1))))
+        a = ql // 2
+        src = ref[start:]
+        if b % 2 == 0:
+            read = np.concatenate([src[:a], src[a + n:]])
+            used = ql + n
+        else:
+            read = np.concatenate([src[:a], rng.integers(0, 4, n), src[a:]])
+            used = max(ql - n, 1)
+        read = read[:ql].astype(np.uint8)
+        q[b, :ql] = read
+        qlen[b] = ql
+        if mode == "global":
+            tl = min(used, R + B - off)
+            t[b, off:off + tl] = ref[off:off + tl]
+            tlen[b] = tl
+        else:
+            t[b] = ref[:R + B]
+            tlen[b] = R + B
+    return q, t, qlen, tlen

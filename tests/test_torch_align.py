@@ -94,6 +94,92 @@ def test_band_align_ops_matches_jax(jax_out, case):
     assert text.band_traceback.launches == 0
 
 
+@pytest.mark.parametrize("mode", ["local", "global", "extend"])
+def test_band_indel_case_matches_jax(mode):
+    """Reads with one long indel each (sim.band_indel_case: walks that
+    move across many band columns) at a band wider
+    than the traceback's 64-column window: the fused align + traceback
+    equals JAX's on all seven outputs."""
+    R, B, Bt = 120, 100, 6
+    q, t, qlen, tlen = sim.band_indel_case(17, Bt, R, B, mode)
+    kw = sim.BAND_SCORES[mode]
+    got = text.band_align_ops(q, t, qlen, tlen, mode=mode, device="cpu",
+                              **kw)
+    want = jext.band_align_ops(q, t, qlen, tlen, mode=mode, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    # some walk crosses more than half the window: a run of 33 or more
+    # insertions or deletions
+    longest = {2: 0, 3: 0}  # op + 1 of I and D
+    for row in got[0]:
+        run, prev = 0, 0
+        for op in row[row > 0]:
+            run = run + 1 if op == prev else 1
+            prev = op
+            if op in longest:
+                longest[op] = max(longest[op], run)
+    assert max(longest.values()) > 32
+
+
+def _full_h(q, t, qlen, tlen, mode, match, mismatch, gapo, gape, clip5=0,
+            clip3=0):
+    """Every row's H of the banded DP (local or extend mode), [Bt, R, B],
+    by a small numpy DP of the same recurrence."""
+    Bt, R = q.shape
+    B = t.shape[1] - R
+    c = np.arange(B, dtype=np.int64)
+    neg = np.full((Bt, 1), text.NEG, dtype=np.int64)
+    if mode == "extend":
+        H = np.where(c == 0, clip5, clip5 - (gapo + c * gape))
+    else:
+        H = np.full(B, clip5)
+    H = np.broadcast_to(H.astype(np.int64), (Bt, B))
+    E = np.full((Bt, B), text.NEG, dtype=np.int64)
+    out = np.empty((Bt, R, B), dtype=np.int64)
+    for i in range(R):
+        qi = q[:, i:i + 1].astype(np.int64)
+        tj = t[:, i:i + B].astype(np.int64)
+        ok = ((qi < 4) & (i < qlen[:, None]) & (tj < 4)
+              & (i + c < tlen[:, None]))
+        sub = np.where(ok, np.where(qi == tj, match, -mismatch), text.NEG)
+        Hup = np.concatenate([H[:, 1:], neg], axis=1)
+        Eup = np.concatenate([E[:, 1:], neg], axis=1)
+        E = np.maximum(Hup - gapo, Eup) - gape
+        Hp = np.maximum(np.maximum(H + sub, E), 0)
+        cm = np.maximum.accumulate(Hp + c * gape, axis=1)
+        F = (np.concatenate([neg, cm[:, :-1]], axis=1) - (gapo + gape)
+             - c * gape)
+        H = np.maximum(Hp, F)
+        out[:, i] = H
+    return out
+
+
+@pytest.mark.parametrize("mode", ["local", "extend"])
+def test_best_cell_is_lexicographic(mode):
+    """With clip3 = 0 the end cell of local and extend modes (jnp.argmax
+    over the row maxima, then over that row's cells) is the lexicographic
+    best of the whole H matrix: the largest H, then the smallest row, then
+    the smallest cell.  The card's band_align keeps that key per lane and
+    reduces it once after the last row, so this pins the equivalence on
+    inputs with ties (tandem repeats) across rows and within a row."""
+    R, B, Bt = 90, 32, 30
+    q, t, qlen, tlen = sim.band_case(5, Bt, R, B, mode)
+    kw = dict(sim.BAND_SCORES[mode], clip3=0)
+    H = _full_h(q, t, qlen, tlen, mode, **kw)
+    _, best, bi, bc = (x.numpy() for x in text.band_align_plain(
+        torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(qlen),
+        torch.from_numpy(tlen), mode=mode, **kw))
+    row_ties = cell_ties = 0
+    for b in range(Bt):
+        top = H[b].max()
+        rows, cells = np.nonzero(H[b] == top)
+        r0 = rows.min()
+        assert (best[b], bi[b], bc[b]) == (top, r0, cells[rows == r0].min())
+        row_ties += len(set(rows)) > 1
+        cell_ties += (rows == r0).sum() > 1
+    assert row_ties and cell_ties
+
+
 def test_numpy_band_align_matches_jax():
     """The numpy band_align (no clip arguments, as in JAX) on a batch
     that JAX pads to a power of two."""

@@ -419,16 +419,29 @@ def _band_launches():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["local", "global", "extend"])
-@pytest.mark.parametrize("R,B,Bt", [(150, 32, 300), (150, 1150, 9),
-                                    (300, 64, 40)])
-def test_band_kernels_match_plain_on_card(cuda_device, mode, R, B, Bt):
+@pytest.mark.parametrize("R,B,Bt", [
+    (150, 32, 300), (150, 1150, 9), (300, 64, 40),
+    # the routes' edges: the widest band the warp route always takes, the
+    # widest warp-route band at the read count from which bands over 256
+    # take it, and one read fewer (block route), the same band with few
+    # reads and the first band always on the block route, bands that are
+    # not a multiple of 32, a read count that is not a multiple of the
+    # reads a block, four reads a traceback block (>= 1,024 reads), rows
+    # past one staged chunk in each route, and a walk across many
+    # traceback tiles
+    (150, 256, 37), (150, 512, 256), (150, 512, 255), (120, 300, 256),
+    (150, 512, 40), (150, 544, 37), (120, 100, 37), (150, 32, 1037),
+    (1100, 600, 5), (1100, 256, 5), (4096, 512, 3)])
+@pytest.mark.parametrize("case", ["band_case", "band_indel_case"])
+def test_band_kernels_match_plain_on_card(cuda_device, mode, R, B, Bt, case):
     """Both aligner kernels against their plain versions on the card, byte
     for byte (tb, scores, end cells; ops and final cells), one launch
-    each."""
+    each; sim.band_indel_case's long indels move the walk across many
+    band columns (past the traceback's column window on wide bands)."""
     from nextpolish_tpu_torch.align import extend as text
 
-    q, t, qlen, tlen = (torch.from_numpy(x).to(cuda_device)
-                        for x in sim.band_case(B + R, Bt, R, B, mode))
+    q, t, qlen, tlen = (torch.from_numpy(x).to(cuda_device) for x in
+                        getattr(sim, case)(B + R, Bt, R, B, mode))
     kw = sim.BAND_SCORES[mode]
     before = _band_launches()
     got = text.band_align_core(q, t, qlen, tlen, mode=mode, **kw)
@@ -439,6 +452,16 @@ def test_band_kernels_match_plain_on_card(cuda_device, mode, R, B, Bt):
     torch.cuda.synchronize(cuda_device)
     for g, w in zip(got + ops, want + ops_p):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_band_step_probe_on_card(cuda_device):
+    """The dependent-step probe behind the aligner kernels' dependency
+    bounds reads a positive cycle count for each chain."""
+    from nextpolish_tpu_torch.align import extend as text
+
+    scan_round, walk_step = text.step_cycles(cuda_device)
+    assert 0 < scan_round < 1000 and 0 < walk_step < 1000
 
 
 @pytest.mark.gpu
