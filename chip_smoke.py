@@ -50,7 +50,9 @@ Phases (any failed check exits non-zero; nothing is caught):
              substitutions): both chain kernels must have been launched,
              every contig must have gone through the native walker, and
              every launch's buffer, recorded on the way, must give the same
-             result bytes through the plain versions on the card; then the
+             result bytes through the plain versions on the card, and every
+             launch of each chain kernel the same f and choices as its
+             plain version on the same card tensors; then the
              differences to the truth before and after polishing, and each
              kernel's time on the largest launch (CUDA events, and its
              device time as the aligner's kernels take it) beside its
@@ -71,7 +73,9 @@ Phases (any failed check exits non-zero; nothing is caught):
              tasks: every planes launch and every no-depth rescue batch,
              recorded on the way, equal to its plain re-run on the card
              (random rescue problems, R = 64 and Lb up to 1,024, stand in
-             when the run has no rescue batch, and the phase says so); the
+             when the run has no rescue batch, and the phase says so), and
+             every chain-kernel launch equal to its plain version (their
+             (B, L) printed); the
              no-depth regions, the launches, the wall, bases/s, and the
              differences to the truth after task 2 beside those after
              task 1;
@@ -107,7 +111,9 @@ Phases (any failed check exits non-zero; nothing is caught):
              kernels' times (as in (a)) at the short-read shape and the
              largest long-read bucket, calib's pick with both rates,
              max_memory_allocated, and the differences to the truth after
-             every round; the aligner launches, recorded on the way, are
+             every round; every chain-kernel launch equals its plain
+             version on the same card tensors; the aligner launches,
+             recorded on the way, are
              re-run through the plain versions on the card (the first 20,
              one of every (mode, R, B) shape, then more while a time
              budget lasts; the count is printed) and must be equal.
@@ -117,7 +123,12 @@ Cuts, all of scale, none of shape: phase 3's number of contigs
 check of a whole window became its first 100,000 levels; phase 7(b)'s
 chromosome is cut to 1,000,000 bp (the host half of the mapper, about
 0.2 ms a short read, would need about 500 s for the whole genome's two
-short-read rounds).  Depth, read lengths and error rates are not cut;
+short-read rounds).  Not a cut but time given back: phase 5's simulation
+and BAM writing build their reads and records in bulk (sim.py's
+_indel_reads, io/bam.py's _encode_records, BGZF blocks compressed on
+several threads), the same bytes as the per-read build and per-record
+writer before them (tests/test_torch_sim.py); phase 5 prints both
+times.  Depth, read lengths and error rates are not cut;
 phases 5 and 6 are not cut (phase 6(a) lowers the launch cap, not the
 contig: a contig past the real cap needs about 10 M reads, which this
 script's time limit cannot simulate).  --phases runs a subset (the build
@@ -674,35 +685,27 @@ def main_path(tmp, dev, args):
 
 class capture_scans:
     """While active, ops.chain's two scan wrappers record their inputs on
-    the way to the kernels: every call (`keep="all"`) or the call with the
-    most cells (`keep="largest"`).  `.orig` holds the wrappers.  A wrapper
-    counts its launches on the module's name for it, so while the
+    the way to the kernels, every call.  `.orig` holds the wrappers.  A
+    wrapper counts its launches on the module's name for it, so while the
     recorders stand in for the wrappers the counts live on the recorders
     and go back to the wrappers on exit."""
 
-    def __init__(self, keep="all"):
+    def __init__(self):
         from nextpolish_tpu_torch.ops import chain as tch
 
         self.tch = tch
-        self.keep = keep
         self.orig = (tch.forward_states, tch.traceback_batch)
         self.fwd, self.tb = [], []
-
-    def _store(self, dst, args):
-        if self.keep == "all" or not dst:
-            dst.append(args)
-        elif args[0].shape[:2].numel() > dst[0][0].shape[:2].numel():
-            dst[0] = args
 
     def __enter__(self):
         fwd, tb = self.orig
 
         def rec_fwd(A, s0, chunk=128):
-            self._store(self.fwd, (A, s0))
+            self.fwd.append((A, s0))
             return fwd(A, s0, chunk)
 
         def rec_tb(P, b_end, chunk=128):
-            self._store(self.tb, (P, b_end))
+            self.tb.append((P, b_end))
             return tb(P, b_end, chunk)
 
         rec_fwd.launches, rec_tb.launches = fwd.launches, tb.launches
@@ -982,7 +985,7 @@ def task1_main_path(tmp, dev, args, ctx):
     out = os.path.join(tmp, "task1", "polished.fa")
     sc.dispatch_chain_group = recording_dispatch
     try:
-        with capture_scans(keep="largest") as cap:
+        with capture_scans() as cap:
             trace.reset("task1")
             torch.cuda.reset_peak_memory_stats(dev)
             zero_chain_launches()
@@ -1041,10 +1044,15 @@ def task1_main_path(tmp, dev, args, ctx):
             f"{'equal' if same else 'DIFFERENT'} through the plain versions")
         check(same, f"task-1 launch {names} differs from the plain versions")
         del dbuf, plain
-    # the largest launch's scans: kernel vs plain, bit for bit, and timed
-    hold_scans(cap, dev, "main path's largest launch")
+    # every launch's scans: kernel vs plain, bit for bit; the largest timed
+    hold_scans(cap, dev, "main path")
+    log(f"task1: {len(cap.tb)} chain_traceback launches (B, L) "
+        f"{[tuple(P.shape[:2]) for P, _ in cap.tb]} equal to "
+        "traceback_batch_plain")
     fwd, tb = cap.orig
-    (A, s0), (P, b_end) = cap.fwd[0], cap.tb[0]
+    (A, s0), (P, b_end) = (max(x, key=lambda a: a[0].shape[:2].numel())
+                           for x in (cap.fwd, cap.tb))
+    del cap
     B, L = A.shape[0], A.shape[1]
     fwd(A, s0), tb(P, b_end)  # warm-up
     ms = {"chain_forward": time_ms(lambda: fwd(A, s0), dev, 5),
@@ -1218,18 +1226,24 @@ def task2_main_path(tmp, dev, ctx):
     tch.chain_correct_planes_batch = rec_planes
     sc.run_chain_batch = rec_rescue
     try:
-        trace.reset("task1")
-        zero_chain_launches()
-        t0 = time.perf_counter()
-        rc = worker1.main(["-g", ctx["out"], "-s", ctx["bam"], "-t", "2",
-                           "-o", out, "--device", "cuda"])
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-        launches = chain_launches()
+        with capture_scans() as cap_scans:
+            trace.reset("task1")
+            zero_chain_launches()
+            t0 = time.perf_counter()
+            rc = worker1.main(["-g", ctx["out"], "-s", ctx["bam"], "-t",
+                               "2", "-o", out, "--device", "cuda"])
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            launches = chain_launches()
     finally:
         tch.chain_correct_planes_batch = planes_fn
         sc.run_chain_batch = rescue_fn
     check(rc == 0, f"worker1 -t 2 --device cuda returned {rc}")
+    hold_scans(cap_scans, dev, "task 2")
+    log(f"task2: {len(cap_scans.tb)} chain_traceback launches (B, L) "
+        f"{[tuple(P.shape[:2]) for P, _ in cap_scans.tb]} equal to "
+        "traceback_batch_plain")
+    del cap_scans
     fasta = open(out, "rb").read().split(b"\n")
     polished = dict(zip((h[1:].split(b" ")[0].decode() for h in fasta[0::2]),
                         fasta[1::2]))
@@ -1610,7 +1624,7 @@ def pipeline_main_path(tmp, dev, args, ctx):
     text.band_traceback.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     try:
-        with capture_band() as cap:
+        with capture_band() as cap, capture_scans() as cap_scans:
             t0 = time.perf_counter()
             rc = cli.main([cfg, "--device", "cuda"])
             torch.cuda.synchronize(dev)
@@ -1660,7 +1674,13 @@ def pipeline_main_path(tmp, dev, args, ctx):
         log(f"pipeline: {name} ({len(truth)} bp): differences to the truth "
             + ", ".join(diffs))
 
-    # the aligner's launches again through the plain versions
+    # the chain scans and the aligner's launches again through the plain
+    # versions
+    hold_scans(cap_scans, dev, "pipeline")
+    log(f"pipeline: {len(cap_scans.fwd)} chain_forward and "
+        f"{len(cap_scans.tb)} chain_traceback launches equal to their plain "
+        "versions")
+    del cap_scans
     t0 = time.perf_counter()
     n_done, n_all, n_shapes = replay_band(cap, dev)
     log(f"pipeline: {n_done} of {n_all} aligner launches ({n_shapes} "

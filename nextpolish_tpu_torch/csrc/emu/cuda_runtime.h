@@ -1,6 +1,7 @@
 #pragma once
-// A CPU stand-in for the part of CUDA that csrc/band_align.cu uses, so that
-// emu_band.py can compile that source with g++ and run it without a card.
+// A CPU stand-in for the part of CUDA that csrc/band_align.cu and
+// csrc/chain_scan.cu use, so that emu_band.py and emu_chain.py can compile
+// those sources with g++ and run them without a card.
 // Every CUDA thread is a std::thread; a block's threads share one buffer as
 // shared memory; shuffles and ballots go through a per-warp buffer between
 // two waits on the warp's std::barrier; __syncthreads waits on the block's.
@@ -8,6 +9,7 @@
 // the block's buffer, cp.async a plain 16-byte copy, and a launch runs the
 // kernel's blocks one at a time.  So this finds wrong logic, not races
 // between blocks.
+#include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 #include <string.h>
@@ -50,39 +52,83 @@ struct uint4 {
 struct uint2 {
   unsigned x, y;
 };
+struct int4 {
+  int x, y, z, w;
+};
+struct float4 {
+  float x, y, z, w;
+};
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
 }
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
 template <class T>
 T __ldg(const T* p) {
   return *p;
 }
+// single roundings, as on the card (g++ builds this without -ffast-math
+// and for a target without FMA)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+// byte n of the result = byte (s >> 4n) & 7 of the eight bytes x, y
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t)y << 32 | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; n++)
+    r |= (unsigned)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
+}
 
-// mode 0 down, 1 up, 2 xor, 3 from lane d; out-of-range lanes read their
-// own value, as on the card
-inline int emu_shfl(int v, int mode, int d) {
+// mode 0 down, 1 up, 2 xor, 3 from lane d, within sections of `width`
+// lanes; a lane whose source lies past its section reads its own value, as
+// on the card; any 4-byte type
+inline int emu_shfl(int v, int mode, int d, int width = 32) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int base = lane & ~(width - 1);
   int* buf = emu_blk->xbuf.data() + 32 * w;
   buf[lane] = v;
   emu_blk->wbar[w]->arrive_and_wait();
   int src = lane;
   if (mode == 0)
-    src = lane + d < 32 ? lane + d : lane;
+    src = lane + d < base + width ? lane + d : lane;
   else if (mode == 1)
-    src = lane - d >= 0 ? lane - d : lane;
+    src = lane - d >= base ? lane - d : lane;
   else if (mode == 2)
-    src = lane ^ d;
+    src = (lane ^ d) < base + width ? lane ^ d : lane;
   else
-    src = d;
+    src = base + (d & (width - 1));
   const int r = buf[src];
   emu_blk->wbar[w]->arrive_and_wait();
   return r;
 }
-inline int __shfl_down_sync(unsigned, int v, int d) { return emu_shfl(v, 0, d); }
-inline int __shfl_up_sync(unsigned, int v, int d) { return emu_shfl(v, 1, d); }
-inline int __shfl_xor_sync(unsigned, int v, int d) { return emu_shfl(v, 2, d); }
-inline int __shfl_sync(unsigned, int v, int d) { return emu_shfl(v, 3, d); }
+template <class T>
+T emu_shfl_as(T v, int mode, int d, int width) {
+  static_assert(sizeof(T) == 4, "4-byte shuffles only");
+  int i;
+  memcpy(&i, &v, 4);
+  i = emu_shfl(i, mode, d, width);
+  memcpy(&v, &i, 4);
+  return v;
+}
+template <class T>
+T __shfl_down_sync(unsigned, T v, int d, int width = 32) {
+  return emu_shfl_as(v, 0, d, width);
+}
+template <class T>
+T __shfl_up_sync(unsigned, T v, int d, int width = 32) {
+  return emu_shfl_as(v, 1, d, width);
+}
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int d, int width = 32) {
+  return emu_shfl_as(v, 2, d, width);
+}
+template <class T>
+T __shfl_sync(unsigned, T v, int d, int width = 32) {
+  return emu_shfl_as(v, 3, d, width);
+}
 inline unsigned __ballot_sync(unsigned, int pred) {
   unsigned m = 0;
   for (int l = 0; l < 32; l++)

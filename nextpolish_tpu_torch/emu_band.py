@@ -37,18 +37,22 @@ SHAPES = ("150,32,10", "120,100,9", "150,544,5", "60,512,3", "20,512,256",
           "1100,64,3", "150,1150,3", "40,1,5", "30,2048,2")
 
 
-def build(src: str) -> str:
+def build(src: str, defines=()) -> str:
+    """g++ builds `src` (with -D `defines`) against the stand-in header
+    into the system's temporary directory, once per content."""
     tag = hashlib.sha1(open(src, "rb").read() + open(
-        os.path.join(EMU_DIR, "cuda_runtime.h"), "rb").read()).hexdigest()
-    so = os.path.join(tempfile.gettempdir(), f"npt_band_emu_{tag[:12]}.so")
+        os.path.join(EMU_DIR, "cuda_runtime.h"), "rb").read()
+        + " ".join(defines).encode()).hexdigest()
+    so = os.path.join(tempfile.gettempdir(), f"npt_emu_{tag[:12]}.so")
     if not os.path.exists(so):
+        tmp = f"{so}.{os.getpid()}.tmp"  # builds in parallel never share one
         r = subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC",
                             "-pthread", "-Wno-unknown-pragmas", "-I", EMU_DIR,
-                            "-x", "c++", "-o", so + ".tmp", src],
+                            *defines, "-x", "c++", "-o", tmp, src],
                            capture_output=True, text=True)
         if r.returncode:
             raise RuntimeError(f"g++ failed:\n{r.stderr}")
-        os.replace(so + ".tmp", so)
+        os.replace(tmp, so)
     return so
 
 

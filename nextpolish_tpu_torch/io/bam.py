@@ -384,83 +384,141 @@ def write_bam(path: str, header: BamHeader, records, index: bool = False
     qual (uint8 array), mtid, mpos, tlen, tags (raw bytes, optional).
 
     With index=True also writes `path + ".bai"` (records must be sorted by
-    (tid, pos))."""
-    voffs = []
+    (tid, pos)).  Records are encoded _ENCODE_BATCH at a time by numpy
+    (_encode_records), and the stream is cut into the same BGZF blocks as
+    a record-at-a-time writer cuts it, so the bytes do not depend on the
+    batching."""
+    records = records if isinstance(records, list) else list(records)
+    text = header.text.encode()
+    buf = bytearray()
+    buf += b"BAM\x01" + struct.pack("<i", len(text)) + text
+    buf += struct.pack("<i", len(header.names))
+    for nm, ln in zip(header.names, header.lengths):
+        nb = nm.encode() + b"\x00"
+        buf += struct.pack("<i", len(nb)) + nb + struct.pack("<i", ln)
+    ustart, ends, tids, poss = [], [], [], []
     with BgzfWriter(path) as out:
-        text = header.text.encode()
-        buf = bytearray()
-        buf += b"BAM\x01" + struct.pack("<i", len(text)) + text
-        buf += struct.pack("<i", len(header.names))
-        for nm, ln in zip(header.names, header.lengths):
-            nb = nm.encode() + b"\x00"
-            buf += struct.pack("<i", len(nb)) + nb + struct.pack("<i", ln)
         out.write(bytes(buf))
-        for rec in records:
-            vs = out.tell_virtual()
-            out.write(_encode_record(rec))
+        upos = len(buf)
+        for lo in range(0, len(records), _ENCODE_BATCH):
+            batch = records[lo:lo + _ENCODE_BATCH]
+            data, rec_len, pos, span = _encode_records(batch)
             if index:
-                cig = np.asarray(rec["cigar"], dtype=np.uint32)
-                span = int(((cig >> 4) * CONSUMES_R[cig & 0xF]).sum()) \
-                    if len(cig) else 1
-                voffs.append((rec["tid"], rec["pos"],
-                              rec["pos"] + max(span, 1), vs,
-                              out.tell_virtual()))
+                ustart.append(upos + np.cumsum(rec_len) - rec_len)
+                ends.append(pos + np.maximum(span, 1))
+                tids.append(np.array([r["tid"] for r in batch], np.int64))
+                poss.append(pos)
+            out.write(data)
+            upos += len(data)
+        blocks = np.asarray(out.block_offsets, dtype=np.int64)
     if index:
         from .bai import write_bai
 
-        write_bai(path + ".bai", len(header.names), voffs)
+        us = np.concatenate(ustart) if ustart else np.zeros(0, np.int64)
+        ue = us + np.diff(np.append(us, upos))
+
+        def voff(u):
+            return (blocks[u // BgzfWriter.BLOCK] << 16) | (
+                u % BgzfWriter.BLOCK)
+
+        cat = (lambda xs: np.concatenate(xs).tolist() if xs else [])
+        write_bai(path + ".bai", len(header.names),
+                  zip(cat(tids), cat(poss), cat(ends), voff(us).tolist(),
+                      voff(ue).tolist()))
 
 
-def _encode_record(rec: dict) -> bytes:
-    name = rec["name"].encode() + b"\x00"
-    cigar = np.asarray(rec["cigar"], dtype=np.uint32)
-    seq_nib = np.asarray(rec["seq_nib"], dtype=np.uint8)
-    l_seq = len(seq_nib)
-    packed = np.zeros((l_seq + 1) // 2, dtype=np.uint8)
-    packed |= seq_nib[0::2] << 4
-    if l_seq > 1:
-        packed[: len(seq_nib[1::2])] |= seq_nib[1::2]
-    qual = np.asarray(rec.get("qual", np.full(l_seq, 0xFF, np.uint8)), dtype=np.uint8)
-    tags = rec.get("tags", b"")
-    span = int(np.sum((cigar >> 4) * CONSUMES_R[cigar & 0xF])) if len(cigar) else 1
-    bin_ = _reg2bin(rec["pos"], rec["pos"] + max(span, 1))
-    body = (
-        struct.pack(
-            "<iiBBHHHiiii",
-            rec["tid"],
-            rec["pos"],
-            len(name),
-            rec.get("mapq", 0),
-            bin_,
-            len(cigar),
-            rec.get("flag", 0),
-            l_seq,
-            rec.get("mtid", -1),
-            rec.get("mpos", -1),
-            rec.get("tlen", 0),
-        )
-        + name
-        + cigar.tobytes()
-        + packed.tobytes()
-        + qual.tobytes()
-        + (tags if isinstance(tags, bytes) else bytes(tags))
-    )
-    return struct.pack("<I", len(body)) + body
+_ENCODE_BATCH = 32768
+# the fixed part of a BAM record: block_size, then "<iiBBHHHiiii"
+_FIXED = np.dtype([("block_size", "<u4"), ("tid", "<i4"), ("pos", "<i4"),
+                   ("l_read_name", "u1"), ("mapq", "u1"), ("bin", "<u2"),
+                   ("n_cigar", "<u2"), ("flag", "<u2"), ("l_seq", "<i4"),
+                   ("mtid", "<i4"), ("mpos", "<i4"), ("tlen", "<i4")])
 
 
-def _reg2bin(beg: int, end: int) -> int:
-    end -= 1
-    if beg >> 14 == end >> 14:
-        return ((1 << 15) - 1) // 7 + (beg >> 14)
-    if beg >> 17 == end >> 17:
-        return ((1 << 12) - 1) // 7 + (beg >> 17)
-    if beg >> 20 == end >> 20:
-        return ((1 << 9) - 1) // 7 + (beg >> 20)
-    if beg >> 23 == end >> 23:
-        return ((1 << 6) - 1) // 7 + (beg >> 23)
-    if beg >> 26 == end >> 26:
-        return ((1 << 3) - 1) // 7 + (beg >> 26)
-    return 0
+def _place(out: np.ndarray, dst: np.ndarray, lens: np.ndarray,
+           src: np.ndarray) -> None:
+    """out[dst[i] : dst[i] + lens[i]] = record i's piece of src (the
+    pieces of all records back to back, in order)."""
+    if len(src):
+        out[np.repeat(dst - (np.cumsum(lens) - lens), lens)
+            + np.arange(len(src))] = src
+
+
+def _encode_records(recs: list):
+    """BAM records, back to back, as bytes, with each record's length, pos
+    and reference span (1 for a record without a CIGAR)."""
+    n = len(recs)
+    names = [r["name"].encode() + b"\x00" for r in recs]
+    cigars = [np.asarray(r["cigar"], dtype=np.uint32) for r in recs]
+    seqs = [np.asarray(r["seq_nib"], dtype=np.uint8) for r in recs]
+    l_name = np.fromiter(map(len, names), np.int64, n)
+    n_cig = np.fromiter(map(len, cigars), np.int64, n)
+    l_seq = np.fromiter(map(len, seqs), np.int64, n)
+    if any("qual" in r for r in recs):
+        quals = [np.asarray(r["qual"], dtype=np.uint8) if "qual" in r
+                 else np.full(ls, 0xFF, np.uint8)
+                 for r, ls in zip(recs, l_seq)]
+        l_qual = np.fromiter(map(len, quals), np.int64, n)
+        qual = np.concatenate(quals) if l_qual.sum() else np.zeros(0, np.uint8)
+    else:  # 0xFF for every base, as the spec marks absent qualities
+        l_qual = l_seq
+        qual = np.full(int(l_seq.sum()), 0xFF, np.uint8)
+    tags = [r.get("tags", b"") for r in recs]
+    tags = [t if isinstance(t, bytes) else bytes(t) for t in tags]
+    l_tag = np.fromiter(map(len, tags), np.int64, n)
+    cig = np.concatenate(cigars) if n_cig.sum() else np.zeros(0, np.uint32)
+    seq = np.concatenate(seqs) if l_seq.sum() else np.zeros(0, np.uint8)
+    # reference span: the CIGAR's reference-consuming lengths
+    ref = ((cig >> 4) * CONSUMES_R[cig & 0xF]).astype(np.int64)
+    span = np.ones(n, np.int64)
+    has = n_cig > 0
+    if has.any():
+        span[has] = np.add.reduceat(ref, (np.cumsum(n_cig) - n_cig)[has])
+    pos = np.array([r["pos"] for r in recs], np.int64)
+    # the sequence, two bases a byte (each record padded to even length)
+    l_pack = (l_seq + 1) // 2
+    padded = np.zeros(2 * int(l_pack.sum()), np.uint8)
+    _place(padded, 2 * (np.cumsum(l_pack) - l_pack), l_seq, seq)
+    packed = (padded[0::2] << 4) | padded[1::2]
+    rec_len = 36 + l_name + 4 * n_cig + l_pack + l_qual + l_tag
+    start = np.cumsum(rec_len) - rec_len
+    fixed = np.zeros(n, _FIXED)
+    fixed["block_size"] = rec_len - 4
+    fixed["tid"] = [r["tid"] for r in recs]
+    fixed["pos"] = pos
+    fixed["l_read_name"] = l_name
+    fixed["mapq"] = [r.get("mapq", 0) for r in recs]
+    fixed["bin"] = _reg2bin(pos, pos + np.maximum(span, 1))
+    fixed["n_cigar"] = n_cig
+    fixed["flag"] = [r.get("flag", 0) for r in recs]
+    fixed["l_seq"] = l_seq
+    fixed["mtid"] = [r.get("mtid", -1) for r in recs]
+    fixed["mpos"] = [r.get("mpos", -1) for r in recs]
+    fixed["tlen"] = [r.get("tlen", 0) for r in recs]
+    out = np.empty(int(rec_len.sum()), np.uint8)
+    at = start
+    for lens, part in (
+            (np.full(n, 36), fixed.view(np.uint8)),
+            (l_name, np.frombuffer(b"".join(names), np.uint8)),
+            (4 * n_cig, cig.view(np.uint8)),
+            (l_pack, packed),
+            (l_qual, qual),
+            (l_tag, np.frombuffer(b"".join(tags), np.uint8))):
+        _place(out, at, lens, part)
+        at = at + lens
+    return out.tobytes(), rec_len, pos, span
+
+
+def _reg2bin(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
+    """The SAM spec's reg2bin of each [beg, end)."""
+    end = end - 1
+    out = np.zeros(len(beg), np.int64)
+    done = np.zeros(len(beg), bool)
+    for shift in (14, 17, 20, 23, 26):
+        m = ~done & ((beg >> shift) == (end >> shift))
+        out[m] = ((1 << (29 - shift)) - 1) // 7 + (beg[m] >> shift)
+        done |= m
+    return out
 
 
 def cigar_from_string(s: str) -> np.ndarray:

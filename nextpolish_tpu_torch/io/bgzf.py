@@ -6,6 +6,7 @@ spec-compliant blocks with the BC extra field and the BGZF EOF marker.
 """
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -102,6 +103,8 @@ class BgzfWriter:
         self._buf = bytearray()
         self._level = level
         self._coffset = 0  # compressed bytes written so far
+        # compressed offset of each block's start, the unflushed one last
+        self.block_offsets = [0]
 
     def tell_virtual(self) -> int:
         """BGZF virtual offset (coffset << 16 | within-block offset) of the
@@ -109,18 +112,34 @@ class BgzfWriter:
         return (self._coffset << 16) | len(self._buf)
 
     def write(self, data: bytes):
+        """Append data; every full BLOCK bytes of the stream become one
+        block (compressed on several threads when many are full)."""
         self._buf += data
-        while len(self._buf) >= self.BLOCK:
-            blk = compress_block(bytes(self._buf[: self.BLOCK]), self._level)
+        n = len(self._buf) // self.BLOCK
+        if not n:
+            return
+        chunks = [bytes(self._buf[i * self.BLOCK:(i + 1) * self.BLOCK])
+                  for i in range(n)]
+        del self._buf[: n * self.BLOCK]
+        if n >= 16:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+                blks = list(pool.map(compress_block, chunks,
+                                     [self._level] * n))
+        else:
+            blks = [compress_block(c, self._level) for c in chunks]
+        for blk in blks:
             self._fh.write(blk)
             self._coffset += len(blk)
-            del self._buf[: self.BLOCK]
+            self.block_offsets.append(self._coffset)
 
     def close(self):
         if self._buf:
             blk = compress_block(bytes(self._buf), self._level)
             self._fh.write(blk)
             self._coffset += len(blk)
+            self.block_offsets.append(self._coffset)
             self._buf.clear()
         self._fh.write(BGZF_EOF)
         if self._own:

@@ -403,20 +403,37 @@ def build() -> dict:
     return nvcc.build(_SRC, "chain_scan")
 
 
+def bind(path: str):
+    """Load a build of csrc/chain_scan.cu (any version with its C
+    interface) and declare its entry points."""
+    lib = ctypes.CDLL(path)
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.npt_chain_forward.argtypes = [p, p, i, i, p, p, p, p]
+    lib.npt_chain_forward.restype = i
+    lib.npt_chain_traceback.argtypes = [p, p, i, i, p, p, p, p]
+    lib.npt_chain_traceback.restype = i
+    lib.npt_chain_error_string.argtypes = [i]
+    lib.npt_chain_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _load():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build()["path"])
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.npt_chain_forward.argtypes = [p, p, i, i, p, p, p, p]
-        lib.npt_chain_forward.restype = i
-        lib.npt_chain_traceback.argtypes = [p, p, i, i, p, p, p, p]
-        lib.npt_chain_traceback.restype = i
-        lib.npt_chain_error_string.argtypes = [i]
-        lib.npt_chain_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = bind(build()["path"])
     return _LIB
+
+
+def traceback_scratch(B: int, nch: int, device):
+    """chain_traceback's scratch (maps, ends): maps holds Q, a packed map a
+    cell (B * nch * CHUNK words), S, a map a 4 cells, then H, a map a
+    group of chunks (B * nch words at most); ends holds E, a base a group
+    (a byte each; a word a chunk is the room that builds before the Q
+    design took, so bench_chain drives both)."""
+    return (torch.empty(B * nch * (CHUNK + CHUNK // 4 + 1),
+                        dtype=torch.int32, device=device),
+            torch.empty(B * nch, dtype=torch.int32, device=device))
 
 
 def _raise_on(lib, rc: int, what: str) -> None:
@@ -495,13 +512,12 @@ def traceback_batch(P: torch.Tensor, b_end: torch.Tensor,
     choice = torch.empty((B, L), dtype=torch.int8, device=P.device)
     if B == 0:
         return choice
-    # per row and chunk: the chunk's composed map, then its end base
-    scratch = torch.empty((2, B, nch), dtype=torch.int32, device=P.device)
+    maps, ends = traceback_scratch(B, nch, P.device)
     lib = _load()
     with torch.cuda.device(P.device):
         rc = lib.npt_chain_traceback(
-            P.data_ptr(), b_end.data_ptr(), B, nch, scratch[0].data_ptr(),
-            scratch[1].data_ptr(), choice.data_ptr(),
+            P.data_ptr(), b_end.data_ptr(), B, nch, maps.data_ptr(),
+            ends.data_ptr(), choice.data_ptr(),
             torch.cuda.current_stream(P.device).cuda_stream)
     _raise_on(lib, rc, "chain_traceback kernel")
     with _COUNT_LOCK:

@@ -165,7 +165,8 @@ def simulate_short_case(seed: int, contig_lens, depth: float,
     0x1|0x2|0x80|0x10 and tlen +/- the fragment length.  Per truth base a
     read carries `sub` substitutions and `ins` / `dele` insertions /
     deletions; reads drawn without an indel (most of them) are built in
-    bulk, the rest by simulate_read from the same per-base draws."""
+    bulk, the rest as simulate_read builds them from the same per-base
+    draws (_indel_reads, also in bulk)."""
     rng = np.random.default_rng(seed)
     names, truths, drafts, records = [], [], [], []
     p_indel = ins + dele
@@ -191,23 +192,82 @@ def simulate_short_case(seed: int, contig_lens, depth: float,
         is_sub = (r >= p_indel) & (r < p_indel + sub)
         codes = np.where(is_sub, (codes + rng.integers(1, 4, codes.shape))
                          % 4, codes)
-        seq_g = BASES[codes]
+        nib_g = bamio._ASCII_TO_NIB[BASES[codes]]
         cig_g = np.array([read_len << 4 | OP_M], dtype=np.uint32)
-        for k in range(2 * n_frag):
-            if gapless[k]:
-                seq, cigar = seq_g[k], cig_g
-            else:
-                seq, cigar = simulate_read(rng, truth, int(starts[k]),
-                                           read_len, sub, ins, dele, r=r[k])
-            m, f = int(mate[k]), int(frag[k])
-            records.append(dict(
-                name=f"p{tid}_{f}", tid=tid, pos=int(starts[k]), mapq=60,
-                flag=0x3 | (0x60 if m == 0 else 0x90), cigar=cigar,
-                seq_nib=bamio.seq_to_nib(seq.tobytes()), mtid=tid,
-                mpos=int(starts[k + n_frag if m == 0 else k - n_frag]),
-                tlen=int(flen[f]) if m == 0 else -int(flen[f])))
+        # reads with an indel: simulate_read's draws, read by read in
+        # order, then the reads themselves in bulk
+        gap = np.flatnonzero(~gapless)
+        nib_i, cig_i = _indel_reads(rng, truth, starts[gap], r[gap], sub,
+                                    ins, dele)
+        nibs, cigars = list(nib_g), [cig_g] * (2 * n_frag)
+        for i, k in enumerate(gap.tolist()):
+            nibs[k], cigars[k] = nib_i[i], cig_i[i]
+        frag_names = [f"p{tid}_{f}" for f in range(n_frag)]
+        # each mate's mpos is the other mate's start: starts rolled by a
+        # half
+        records += [
+            dict(name=frag_names[f], tid=tid, pos=pos, mapq=60,
+                 flag=0x3 | (0x60 if m == 0 else 0x90), cigar=cigar,
+                 seq_nib=nib, mtid=tid, mpos=mpos, tlen=tlen)
+            for m, f, pos, mpos, tlen, nib, cigar in zip(
+                mate.tolist(), frag.tolist(), starts.tolist(),
+                np.roll(starts, n_frag).tolist(),
+                np.concatenate([flen, -flen]).tolist(), nibs, cigars)]
     records.sort(key=lambda rec: (rec["tid"], rec["pos"]))
     return SimCase(names, truths, drafts, records)
+
+
+def _indel_reads(rng, truth: np.ndarray, starts: np.ndarray, r: np.ndarray,
+                 sub: float, ins: float, dele: float, batch: int = 16384):
+    """simulate_read(rng, truth, starts[i], len(r[i]), ..., r=r[i]) for each
+    i in order, as (seq_nib, cigar) lists: the same draws in the same order
+    (each read's substitution bases, then its inserted bases), the reads
+    built from them `batch` at a time in bulk."""
+    m, n = r.shape
+    r = r.copy()
+    r[:, 0] = r[:, -1] = 1.0
+    is_del = r < dele
+    is_ins = (r >= dele) & (r < dele + ins)
+    is_sub = (r >= dele + ins) & (r < dele + ins + sub)
+    n_ins = is_ins.sum(axis=1)
+    sub_draw = np.empty((m, n), dtype=np.int64)
+    ins_draw = []
+    for i in range(m):
+        sub_draw[i] = rng.integers(1, 4, n)
+        ins_draw.append(rng.integers(0, 4, int(n_ins[i])))
+    tcode = np.searchsorted(BASES, truth)
+    nibs, cigars = [], []
+    for lo in range(0, m, batch):
+        hi = min(lo + batch, m)
+        ii, dd = is_ins[lo:hi], is_del[lo:hi]
+        code = tcode[starts[lo:hi, None] + np.arange(n)]
+        code = np.where(is_sub[lo:hi], (code + sub_draw[lo:hi]) % 4, code)
+        # two slots a truth base: (the inserted base, then the base) at an
+        # insertion, (the base or a deletion, nothing) elsewhere
+        first = code.copy()
+        if ii.any():
+            first[ii] = np.concatenate(ins_draw[lo:hi])
+        slots = np.stack([first, code], axis=2)
+        has_base = np.stack([~dd, ii], axis=2)
+        ops = np.stack([np.where(ii, OP_I, np.where(dd, OP_D, OP_M)),
+                        np.full(ii.shape, OP_M)], axis=2)
+        has_op = np.stack([np.ones_like(ii), ii], axis=2)
+        nib = bamio._ASCII_TO_NIB[BASES[slots[has_base]]]
+        nibs += _split(nib, has_base.sum(axis=(1, 2)))
+        op = ops[has_op]
+        rid = np.repeat(np.arange(hi - lo), has_op.sum(axis=(1, 2)))
+        run = np.concatenate([[0], np.flatnonzero(
+            (op[1:] != op[:-1]) | (rid[1:] != rid[:-1])) + 1])
+        lens = np.diff(np.concatenate([run, [len(op)]]))
+        cig = (lens.astype(np.uint32) << 4) | op[run].astype(np.uint32)
+        cigars += _split(cig, np.bincount(rid[run], minlength=hi - lo))
+    return nibs, cigars
+
+
+def _split(a: np.ndarray, lens: np.ndarray) -> list:
+    """a cut into consecutive pieces of the given lengths (views)."""
+    ends = np.cumsum(lens).tolist()
+    return [a[s:e] for s, e in zip([0] + ends[:-1], ends)]
 
 
 def write_case(case: SimCase, outdir: str) -> tuple[str, str]:

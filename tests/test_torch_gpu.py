@@ -229,11 +229,37 @@ def _scan_inputs(seed, B, L, live, big=False):
     return A, s0, P, b_end
 
 
+def _scan_inputs_on_card(seed, B, L, live, dev):
+    """_scan_inputs' kinds of inputs drawn on the card (large rows)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape, lo=None, hi=None, dtype=torch.int32):
+        if lo is None:
+            return torch.rand(shape, generator=g, device=dev)
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    A = draw(B, L, 8, 8, lo=-40, hi=40, dtype=torch.int8).float() * 0.5
+    A[draw(B, L, 8, 8) < 0.3] = float(tch.NEG)
+    eye = torch.full((8, 8), float(tch.NEG), device=dev).fill_diagonal_(0.0)
+    P = draw(B, L, 8, lo=0, hi=8)
+    n_dp = draw(B, lo=1, hi=L + 1, dtype=torch.int64).tolist()
+    if B > 1:
+        n_dp[1] = 0
+    for b in range(B):
+        A[b, n_dp[b]:] = eye
+        P[b, n_dp[b]:] = torch.arange(8, device=dev, dtype=torch.int32)
+    s0 = torch.full((B, 8), float(tch.NEG), device=dev)
+    for b in range(B):
+        s0[b, torch.randperm(8, generator=g, device=dev)[:live]] = 0.0
+    return A, s0, P, draw(B, lo=0, hi=8)
+
+
 def _hold_chain(dev, A, s0, P, b_end):
     """Both chain kernels against their plain versions on the card: f bit
     for bit, the choices byte for byte; one call is one launch."""
-    A, s0, P, b_end = (torch.from_numpy(x).to(dev) for x in (A, s0, P,
-                                                             b_end))
+    A, s0, P, b_end = (torch.as_tensor(x, device=dev) for x in (A, s0, P,
+                                                                b_end))
     before = _chain_launches()
     f = tch.forward_states(A, s0)
     assert _chain_launches() == (before[0] + 1, before[1])
@@ -248,13 +274,23 @@ def _hold_chain(dev, A, s0, P, b_end):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,L", [(1, 128), (8, 128), (1, 1 << 15),
-                                 (8, 1 << 15)])
+                                 (8, 1 << 15), (64, 128), (128, 256),
+                                 (1, 1 << 19), (1, 1 << 23)])
 @pytest.mark.parametrize("live", [1, 8])
 def test_chain_kernels_match_plain_on_card(cuda_device, B, L, live):
     """L = 128 (one chunk, no tree) and 2^15 cells (256 chunks), one row
-    and eight rows in one launch, s0 with one and with eight live
+    and eight rows in one launch; many rows of one and two chunks (the
+    traceback's walk takes a block of one warp a row, most threads idle);
+    a window of the window route (2^19 cells, 4,096 chunks: several chunk
+    maps a walk thread) and task 1's largest launch (2^23 cells, 65,536
+    chunks, inputs drawn on the card); s0 with one and with eight live
     states, rows all padding past n_dp."""
-    _hold_chain(cuda_device, *_scan_inputs(B * L + live, B, L, live))
+    seed = B * L + live
+    if B * L >= 1 << 19:
+        _hold_chain(cuda_device, *_scan_inputs_on_card(seed, B, L, live,
+                                                       cuda_device))
+    else:
+        _hold_chain(cuda_device, *_scan_inputs(seed, B, L, live))
 
 
 @pytest.mark.gpu
