@@ -269,8 +269,8 @@ def ptxas_by_kernel(text: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(level_chain_kernel|level_winners_kernel|"
-                          r"smem_step_probe|fwd_chunks|fwd_up|fwd_down|"
-                          r"fwd_replay|tb_maps|tb_walk|tb_replay|"
+                          r"smem_step_probe|fwd_scan|"
+                          r"tb_maps|tb_walk|tb_replay|"
                           r"band_align_kernel|band_traceback_kernel|"
                           r"band_step_probe)"
                           r"(?:I((?:L[bi]\d+E)+)E)?", m.group(1))

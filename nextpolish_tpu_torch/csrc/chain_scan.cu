@@ -7,31 +7,61 @@
 //
 //   f[t] = s0 (x) A_0 (x) ... (x) A_t,   (x) the (max,+) product,
 //
-// in _forward_states' three phases and with its exact float order, so f is
-// bit-equal to JAX's (an addition is one rounding and max is order-free, so
-// only the association of the products fixes the bits, and magnitudes past
-// 2^24 do round: chunk products of a multi-megabase contig, and the NEG
-// domain):
-//   1. fwd_chunks: per 128-cell chunk, P = I; P = P (x) A_t, then P -= max(P)
-//      after every step (a group of 8 threads per chunk, thread i owns row i
-//      of P; the max is a 3-step shuffle within the group);
-//   2. fwd_up / fwd_down: the inclusive scan of the chunk products in
-//      jax.lax.associative_scan's order (combine adjacent pairs, recurse on
-//      the pair results, then combine each odd result with the next even
-//      element): one pass per tree level, up and then down, over a scratch
-//      tensor the wrapper allocates (the chunk count is a power of two);
-//   3. fwd_replay: per chunk, s = max_i(s0_i + Pexc[i, :]) minus its max,
-//      then s = s (x) A_t with no renormalisation, writing f (a group of 8
-//      threads per chunk, thread j owns state j).
+// with _forward_states' exact float order, so f is bit-equal to JAX's (an
+// addition is one rounding and max is order-free, so only the
+// association of the products fixes the bits, and magnitudes past 2^24
+// do round: chunk products of a multi-megabase contig, and the NEG
+// domain).  What fixes the bits: the 128-cell chunks; phase 1's P = I,
+// P = P (x) A_t, P -= max(P) after every step, giving X[c]; the inclusive
+// scan of the X in jax.lax.associative_scan's order; the replay's s =
+// max_i(s0_i + Pexc[i, :]) minus its max, then s = s (x) A_t unnormalised.
+// Which thread computes which entry of a product is free.
 //
-// What bounds chain_forward on the H100.  It reads A (256 B a cell) in
-// phases 1 and 3 and writes f (32 B a cell): bytes, about 0.7 ms at 8.4 M
-// cells, against about 10^3 float operations a cell.  Its dependency chain
-// is 128 + 2 log2(chunks) + 128 steps.  The design spreads phases 1 and 3
-// over B x L/128 groups of 8 threads, which fills the card at task-1 sizes,
-// reads each A_t as two 16-byte loads per thread that the group shares,
-// and pays one kernel launch per tree level of phase 2 (34 launches at
-// 8.4 M cells, a few microseconds each).
+// JAX's scan order as a recurrence.  For chunk c of a row let 2^k be the
+// lowest set bit of c + 1, and T(c) the tree product of the 2^k chunks
+// that end at c: T(c) = T(c - 2^(k-1)) (x) ( ... (x) (T(c - 2) (x) (T(c - 1)
+// (x) X[c]))), each T(c - 2^j) built the same way.  Then
+//   Pinc[c] = T(c) when c + 1 = 2^k, else Pinc[c - 2^k] (x) T(c):
+// associative_scan combines adjacent pairs and recurses on the pair
+// results, so its element c + 1 = 2^k m (m odd) is the prefix of m pair
+// results of level k, which by induction is Pinc of the last chunk before
+// the block, times the block's tree.  ops/chain.py::lookback_scan renders
+// this order in Python, and tests/test_torch_chain.py holds it to
+// associative_scan with an operator that is not associative.
+//
+// The design: one launch, fwd_scan.  A warp's four groups of 8 threads
+// take a unit of 4 consecutive chunks by ticket (an atomic counter, in
+// increasing order).  Group r runs phase 1 on its chunk (thread i row i,
+// a 3-step shuffle max), the warp builds the unit's tree N = (X0 (x) X1)
+// (x) (X2 (x) X3) and, with the recurrence above at the level of units,
+// T(u) from the published T of units u - 1, u - 2, ..., u - 2^(k-1);
+// publishes it; then Pinc(u) from Pinc(u - 2^k); publishes it; takes
+// Pinc(u - 1) as the prefix the unit enters with; forms the prefixes of
+// its first three chunks (Pprev (x) X0, Pprev (x) T1, then (x) X2); and
+// each group replays its chunk (thread j state j).  A look-back waits only
+// on lower tickets, held by running warps of other units, so it cannot
+// deadlock on the card or in the emulation (which runs a launch's blocks
+// one at a time).  Publication needs no flags or fences: T and Pinc start
+// as all-ones words (the call's one memset) and are written once, and a
+// reader polls its rows through L2 until no word is all ones (no
+// arithmetic of the card yields that NaN).  A ring of 4 cp.async stages a
+// warp feeds both phases, so no step waits on a load it started that step.
+//
+// What bounds chain_forward on the H100.  Bytes: A once (256 B a cell)
+// and f (32 B a cell) is 0.7212 ms at 8.4 M cells and 3.35 TB/s.  Its
+// dependency chain is 256 steps a chunk plus a look-back of about log2
+// (chunks) products, and a chunk's data waits between its two reads of
+// A: the card can hold a window of chunks in flight, and A's second read
+// comes from L2 only while that window's A (about 16 KB a chunk on
+// average) fits in its 50 MB.  Measured on an H100 80GB HBM3 at 700 W
+// (bench_chain): with 16 warps an SM (about 8,000 chunks in
+// flight, 130 MB) the replay rereads HBM and the launch moves about 4.6 GB
+// (1.635 ms at 8.4 M cells); with 4–6 warps an SM the window fits but a
+// warp's 256 steps (about 63 µs for its 4 chunks) leave the card waiting
+// (1.67–1.99 ms).  Four threads a chunk (two rows a thread) halve the
+// register traffic of phase 1 but not the time of a lone warp's step; the
+// L2 priorities (evict_last for phase 1's copies, evict_first for the
+// replay's) did not move the time.  The launch stays at 16 warps an SM.
 //
 // chain_traceback replaces tropical.py::_traceback_batch: b_{c-1} = P[c,
 // b_c], from b_end at each row's last cell (padding cells carry the
@@ -78,9 +108,9 @@
 // read twice (545 MB).  A single pass with a decoupled look-back (P read
 // once, no Q) would move about 277 MB; it is not built.
 //
-// Every launch goes to the caller's stream (PyTorch's current stream); the
-// C entry points return cudaGetLastError() after each launch and allocate
-// nothing.
+// Every launch and memset goes to the caller's stream (PyTorch's current
+// stream); the C entry points return cudaGetLastError() after each launch
+// and allocate nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,25 +153,6 @@ __device__ __forceinline__ float group_max8(float v) {
   return v;
 }
 
-// out[j] = max_k c[k] + m[k][j]: one row of a (max,+) product, m an 8x8
-// row-major matrix in device memory (16-byte aligned).
-__device__ __forceinline__ void row_times(const float (&c)[kS],
-                                          const float* __restrict__ m,
-                                          float (&out)[kS]) {
-  const float4* m4 = reinterpret_cast<const float4*>(m);
-#pragma unroll
-  for (int k = 0; k < kS; k++) {
-    const float4 lo = __ldg(m4 + 2 * k);
-    const float4 hi = __ldg(m4 + 2 * k + 1);
-    const float r[kS] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-    for (int j = 0; j < kS; j++) {
-      const float v = __fadd_rn(c[k], r[j]);
-      out[j] = k == 0 ? v : fmaxf(out[j], v);
-    }
-  }
-}
-
 __device__ __forceinline__ void load_row(const float* __restrict__ m, int i,
                                          float (&c)[kS]) {
   const float4* m4 = reinterpret_cast<const float4*>(m + i * kS);
@@ -159,109 +170,278 @@ __device__ __forceinline__ void store_row(float* m, int i,
 
 // ---- chain_forward -------------------------------------------------------
 
-// Phase 1: X0[g] = the renormalised product of chunk g's 128 matrices
-// (g = b * nch + chunk); 8 threads per chunk, thread i owns row i.
-__global__ void __launch_bounds__(kThreads)
-fwd_chunks(const float* __restrict__ A, int n_groups, float* __restrict__ X0) {
-  const long long gid = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const int i = (int)(gid & 7);
-  const bool live = (gid >> 3) < n_groups;
-  // groups past the end compute a copy of the last one (the group's
-  // shuffles need all 32 lanes) and store nothing
-  const long long g = live ? (gid >> 3) : n_groups - 1;
-  const float* a = A + g * kChunk * 64;
-  float c[kS];
-#pragma unroll
-  for (int j = 0; j < kS; j++) c[j] = j == i ? 0.f : kNeg;
-  for (int t = 0; t < kChunk; t++) {
-    float n[kS];
-    row_times(c, a + t * 64, n);
-    float m = n[0];
-#pragma unroll
-    for (int j = 1; j < kS; j++) m = fmaxf(m, n[j]);
-    m = group_max8(m);
-#pragma unroll
-    for (int j = 0; j < kS; j++) c[j] = __fsub_rn(n[j], m);
-  }
-  if (live) store_row(X0 + g * 64, i, c);
-}
+constexpr int kUnit = 4;  // chunks a ticket: the four 8-thread groups of a warp
+// 16 warps an SM (the note above: fewer leave the card waiting on latency)
+constexpr int kFwdWarps = 8;        // warps a block
+constexpr int kFwdBlocksPerSm = 2;  // the grid's cap
+// a warp's 8x8 matrices in shared memory: X_0..X_3 in slots 0..3, then
+constexpr int kT1 = 4, kN23 = 5, kAcc = 6, kPprev = 7, kPinc0 = 8;
+constexpr int kSlots = 11;  // kPinc0 .. kPinc0 + 2 hold Pinc of chunks 0..2
+// then a ring of kStages steps of A for the warp's four chunks; a chunk's
+// 64 floats padded to 72, so that the replay's column reads of the four
+// chunks hit 32 banks
+constexpr int kStages = 4;
+constexpr int kGrp = 72;
+constexpr int kWarpFloats = kSlots * 64 + kStages * kUnit * kGrp;
 
-// Phase 2, up: Y[b, j] = X[b, 2j] (x) X[b, 2j+1] for j < n_out.
-__global__ void __launch_bounds__(kThreads)
-fwd_up(const float* __restrict__ X, float* __restrict__ Y, int n_out, int B) {
-  const long long gid = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (gid >= (long long)B * n_out * 8) return;
-  const int i = (int)(gid & 7);
-  const long long pj = gid >> 3;
-  const long long b = pj / n_out, j = pj % n_out;
-  const float* x = X + (b * 2 * n_out + 2 * j) * 64;
-  float c[kS], out[kS];
-  load_row(x, i, c);
-  row_times(c, x + 64, out);
-  store_row(Y + (b * n_out + j) * 64, i, out);
+#ifndef NPT_EMU
+// L2 policies for the loads of A: phase 1's keep them, so that the
+// replay's second read finds them in L2; the replay's go first.
+__device__ __forceinline__ uint64_t npt_l2_keep() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
 }
-
-// Phase 2, down: the inclusive prefixes R of one tree level (n elements a
-// row) from the next level's prefixes Rn (n/2) and this level's
-// elements X: R[2j+1] = Rn[j], R[0] = X[0], R[2j] = Rn[j-1] (x) X[2j].
-__global__ void __launch_bounds__(kThreads)
-fwd_down(const float* __restrict__ Rn, const float* __restrict__ X,
-         float* __restrict__ R, int n, int B) {
-  const long long gid = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (gid >= (long long)B * n * 8) return;
-  const int i = (int)(gid & 7);
-  const long long pe = gid >> 3;
-  const long long b = pe / n, e = pe % n;
-  float out[kS];
-  if (e & 1) {
-    load_row(Rn + (b * (n / 2) + (e >> 1)) * 64, i, out);
-  } else if (e == 0) {
-    load_row(X + b * n * 64, i, out);
-  } else {
-    float c[kS];
-    load_row(Rn + (b * (n / 2) + (e >> 1) - 1) * 64, i, c);
-    row_times(c, X + (b * n + e) * 64, out);
-  }
-  store_row(R + (b * n + e) * 64, i, out);
+__device__ __forceinline__ uint64_t npt_l2_drop() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
 }
+#define NPT_CP_ASYNC16_HINT(dst, src, pol)                                 \
+  asm volatile(                                                           \
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" :: \
+          "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),     \
+      "l"(src), "l"(pol))
+#define NPT_CP_ASYNC_COMMIT() asm volatile("cp.async.commit_group;\n" ::)
+#define NPT_CP_ASYNC_WAIT(n) asm volatile("cp.async.wait_group %0;\n" ::"n"(n))
+__device__ __forceinline__ float4 npt_ld_volatile4(const float4* q) {
+  float4 v;
+  asm volatile("ld.volatile.global.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(q));
+  return v;
+}
+__device__ __forceinline__ uint64_t npt_globaltimer() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#endif
 
-// Phase 3: per chunk, the start state from s0 and the exclusive prefix
-// (the identity for chunk 0, else Pinc[g-1]), renormalised, then the
-// replay; 8 threads per chunk, thread j owns state j.
-__global__ void __launch_bounds__(kThreads)
-fwd_replay(const float* __restrict__ A, const float* __restrict__ s0,
-           const float* __restrict__ Pinc, int nch, int n_groups,
-           float* __restrict__ f) {
-  const long long gid = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const int j = (int)(gid & 7);
-  const bool live = (gid >> 3) < n_groups;
-  const long long g = live ? (gid >> 3) : n_groups - 1;
-  const long long b = g / nch, ch = g % nch;
-  float s[kS];
-  load_row(s0, (int)b, s);
-  float ss = 0.f;
+// out[j] = max_k c[k] + m[k][j]: one row of a (max,+) product, m an 8x8
+// row-major matrix in shared memory.
+__device__ __forceinline__ void row_times_s(const float (&c)[kS],
+                                            const float* m,
+                                            float (&out)[kS]) {
+  const float4* m4 = reinterpret_cast<const float4*>(m);
 #pragma unroll
-  for (int i = 0; i < kS; i++) {
-    const float p = ch == 0 ? (i == j ? 0.f : kNeg)
-                            : __ldg(Pinc + (g - 1) * 64 + i * kS + j);
-    const float v = __fadd_rn(s[i], p);
-    ss = i == 0 ? v : fmaxf(ss, v);
-  }
-  ss = __fsub_rn(ss, group_max8(ss));
+  for (int k = 0; k < kS; k++) {
+    const float4 lo = m4[2 * k], hi = m4[2 * k + 1];
+    const float r[kS] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-  for (int i = 0; i < kS; i++) s[i] = __shfl_sync(kFull, ss, i, 8);
-  const float* a = A + g * kChunk * 64;
-  float* fo = f + g * kChunk * kS;
-  for (int t = 0; t < kChunk; t++) {
-    float out = 0.f;
-#pragma unroll
-    for (int i = 0; i < kS; i++) {
-      const float v = __fadd_rn(s[i], __ldg(a + t * 64 + i * kS + j));
-      out = i == 0 ? v : fmaxf(out, v);
+    for (int j = 0; j < kS; j++) {
+      const float v = __fadd_rn(c[k], r[j]);
+      out[j] = k == 0 ? v : fmaxf(out[j], v);
     }
-    if (live) fo[t * kS + j] = out;
+  }
+}
+
+__device__ __forceinline__ void load_row_s(const float* m, int i,
+                                           float (&c)[kS]) {
+  const float4* m4 = reinterpret_cast<const float4*>(m + i * kS);
+  const float4 lo = m4[0], hi = m4[1];
+  c[0] = lo.x; c[1] = lo.y; c[2] = lo.z; c[3] = lo.w;
+  c[4] = hi.x; c[5] = hi.y; c[6] = hi.z; c[7] = hi.w;
+}
+
+// A unit's published T or Pinc starts as kUnset in every word (the
+// launch's memset) and is written once; no arithmetic of the card yields
+// these bits (its NaN is 0x7fffffff), so a word that differs is final.
+constexpr uint32_t kUnset = 0xffffffffu;
+
+// Row i of the matrix m another warp publishes, once all 64 words of it
+// are written: every lane polls its row through L2 until no lane sees
+// kUnset.  The wait is on a unit of a lower ticket, which a running warp
+// holds, so it ends within microseconds; one that has not ended after
+// 2^26 polls (some seconds) traps, so that a fault fails the launch and
+// hangs nothing.
+__device__ __forceinline__ void await_row(const float* m, int i,
+                                          float (&c)[kS]) {
+  const float4* m4 = reinterpret_cast<const float4*>(m + i * kS);
+  for (int n = 0;; n++) {
+    const float4 lo = npt_ld_volatile4(m4), hi = npt_ld_volatile4(m4 + 1);
+    c[0] = lo.x; c[1] = lo.y; c[2] = lo.z; c[3] = lo.w;
+    c[4] = hi.x; c[5] = hi.y; c[6] = hi.z; c[7] = hi.w;
+    bool done = true;
 #pragma unroll
-    for (int i = 0; i < kS; i++) s[i] = __shfl_sync(kFull, out, i, 8);
+    for (int j = 0; j < kS; j++) done &= __float_as_uint(c[j]) != kUnset;
+    if (__all_sync(kFull, done)) return;
+    if (n == 1 << 26) __trap();
+    __nanosleep(32);
+  }
+}
+
+// One launch: warps take units of kUnit chunks by ticket, in increasing
+// order, until n_units are taken.  Per unit, group r of the warp (lanes
+// 8r .. 8r + 7) runs phase 1 on chunk 4u + r (thread i row i of X), the
+// warp combines the unit's X in the tree's order and finishes the look-back
+// (rows of nch >= 4 chunks; rows of 1 or 2 chunks lie inside a unit), and
+// group r replays its chunk from its exclusive prefix (thread j state j).
+// Tpub and Ppub hold each unit's T and Pinc (64 floats a unit, kUnset
+// until written); *ticket counts from -1.  With `trace`, lane 0 stamps
+// each unit's events in globaltimer nanoseconds (bench_chain --trace).
+__global__ void __launch_bounds__(kFwdWarps * 32)
+fwd_scan(const float* __restrict__ A, const float* __restrict__ s0, int nch,
+         int n_chunks, int n_units, float* __restrict__ Tpub,
+         float* __restrict__ Ppub, int* __restrict__ ticket,
+         float* __restrict__ f, uint64_t* __restrict__ trace) {
+  NPT_DYNAMIC_SMEM(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = lane >> 3, i = lane & 7;
+  float* sm = reinterpret_cast<float*>(smem) + warp * kWarpFloats;
+  float* ring = sm + kSlots * 64;
+  const uint64_t keep = npt_l2_keep(), drop = npt_l2_drop();
+  const int nu = nch / kUnit;  // units a row, when nch >= kUnit
+  for (;;) {
+    int u = 0;
+    if (lane == 0) u = atomicAdd(ticket, 1) + 1;
+    u = __shfl_sync(kFull, u, 0);
+    if (u >= n_units) break;
+    // events: ticket, phase 1 done, T published, Pinc published, the
+    // unit's prefix in hand, replay done
+    auto mark = [&](int e) {
+      if (trace && lane == 0) trace[(long long)u * 8 + e] = npt_globaltimer();
+    };
+    mark(0);
+    const long long g = (long long)u * kUnit + r;
+    const bool live = g < n_chunks;
+    // a group past the end runs a copy of the last chunk, stores nothing
+    const long long gc = live ? g : n_chunks - 1;
+    const float* a = A + gc * kChunk * 64;
+    // lane i of group r copies floats 8i .. 8i + 7 of its chunk's A_t
+    // into the ring's stage t % kStages
+    auto copy_in = [&](int t, uint64_t pol) {
+      if (t < kChunk) {
+        float* dst = ring + (t % kStages) * (kUnit * kGrp) + r * kGrp + 8 * i;
+        const float* src = a + t * 64 + 8 * i;
+        NPT_CP_ASYNC16_HINT(dst, src, pol);
+        NPT_CP_ASYNC16_HINT(dst + 4, src + 4, pol);
+      }
+      NPT_CP_ASYNC_COMMIT();
+    };
+    // stage t's copies are done and visible to the warp; the next copy
+    // goes to the stage every lane has finished reading
+    auto arrive = [&](int t, uint64_t pol) {
+      NPT_CP_ASYNC_WAIT(kStages - 2);
+      __syncwarp();
+      copy_in(t + kStages - 1, pol);
+      return ring + (t % kStages) * (kUnit * kGrp) + r * kGrp;
+    };
+    // phase 1: X = the renormalised product of the chunk's matrices
+    float c[kS];
+#pragma unroll
+    for (int j = 0; j < kS; j++) c[j] = j == i ? 0.f : kNeg;
+    for (int t = 0; t < kStages - 1; t++) copy_in(t, keep);
+    for (int t = 0; t < kChunk; t++) {
+      float n[kS];
+      row_times_s(c, arrive(t, keep), n);
+      float m = n[0];
+#pragma unroll
+      for (int j = 1; j < kS; j++) m = fmaxf(m, n[j]);
+      m = group_max8(m);
+#pragma unroll
+      for (int j = 0; j < kS; j++) c[j] = __fsub_rn(n[j], m);
+    }
+    store_row(sm + r * 64, i, c);
+    __syncwarp();
+    mark(1);
+    // the chunk's exclusive prefix Pexc: pe, or the identity
+    bool ident = true;
+    const float* pe = sm;
+    if (nch == 2) {
+      ident = !(r & 1);
+      pe = sm + (r & 2) * 64;
+    } else if (nch >= kUnit) {
+      const int ur = u % nu;  // the unit's index in its row
+      const bool first = ur == 0;
+      float x[kS], acc[kS];
+      // T1 = X0 (x) X1 (groups 0, 1) and N23 = X2 (x) X3 (groups 2, 3)
+      const int pr = r & 2;
+      load_row_s(sm + pr * 64, i, x);
+      row_times_s(x, sm + (pr + 1) * 64, acc);
+      if (!(r & 1)) store_row(sm + (kT1 + (r >> 1)) * 64, i, acc);
+      __syncwarp();
+      // N = T1 (x) N23, the unit's tree product (every group)
+      load_row_s(sm + kT1 * 64, i, x);
+      row_times_s(x, sm + kN23 * 64, acc);
+      // T(u) = T(u - 2^(k-1)) (x) ( ... (x) (T(u - 1) (x) N)), 2^k the
+      // lowest set bit of ur + 1
+      const int k = __ffs(ur + 1) - 1;
+      for (int j = 0; j < k; j++) {
+        __syncwarp();
+        if (r == 0) store_row(sm + kAcc * 64, i, acc);
+        await_row(Tpub + (long long)(u - (1 << j)) * 64, i, x);
+        __syncwarp();
+        row_times_s(x, sm + kAcc * 64, acc);
+      }
+      if (r == 0) store_row(Tpub + (long long)u * 64, i, acc);
+      mark(2);
+      // Pinc(u) = Pinc(u - 2^k) (x) T(u), or T(u) when ur + 1 = 2^k
+      if (ur + 1 != 1 << k) {
+        __syncwarp();
+        if (r == 0) store_row(sm + kAcc * 64, i, acc);
+        await_row(Ppub + (long long)(u - (1 << k)) * 64, i, x);
+        __syncwarp();
+        row_times_s(x, sm + kAcc * 64, acc);
+      }
+      if (r == 0) store_row(Ppub + (long long)u * 64, i, acc);
+      mark(3);
+      // Pprev = Pinc(u - 1), the prefix the unit enters with
+      if (!first) {
+        await_row(Ppub + (long long)(u - 1) * 64, i, x);
+        if (r == 0) store_row(sm + kPprev * 64, i, x);
+      }
+      __syncwarp();
+      // Pinc0 = Pprev (x) X0 (group 1 keeps it), Pinc1 = Pprev (x) T1
+      // (group 2); X0 and T1 themselves in a row's first unit
+      const float* rhs = sm + (r == 2 ? kT1 : 0) * 64;
+      if (first) {
+        load_row_s(rhs, i, acc);
+      } else {
+        load_row_s(sm + kPprev * 64, i, x);
+        row_times_s(x, rhs, acc);
+      }
+      if (r == 1 || r == 2) store_row(sm + (kPinc0 + r - 1) * 64, i, acc);
+      __syncwarp();
+      // Pinc2 = Pinc1 (x) X2 (group 3)
+      load_row_s(sm + kPinc0 * 64 + 64, i, x);
+      row_times_s(x, sm + 2 * 64, acc);
+      if (r == 3) store_row(sm + (kPinc0 + 2) * 64, i, acc);
+      __syncwarp();
+      ident = r == 0 && first;
+      pe = r == 0 ? sm + kPprev * 64 : sm + (kPinc0 + r - 1) * 64;
+    }
+    mark(4);
+    // phase 3: s = max_i (s0_i + Pexc[i, :]) minus its max, then the replay
+    float s[kS];
+    load_row(s0, (int)(gc / nch), s);
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < kS; k++) {
+      const float p = ident ? (k == i ? 0.f : kNeg) : pe[k * kS + i];
+      const float v = __fadd_rn(s[k], p);
+      ss = k == 0 ? v : fmaxf(ss, v);
+    }
+    __syncwarp();  // the slots are read: the next unit may overwrite them
+    ss = __fsub_rn(ss, group_max8(ss));
+#pragma unroll
+    for (int k = 0; k < kS; k++) s[k] = __shfl_sync(kFull, ss, k, 8);
+    float* fo = f + gc * kChunk * kS;
+    for (int t = 0; t < kStages - 1; t++) copy_in(t, drop);
+    for (int t = 0; t < kChunk; t++) {
+      const float* m = arrive(t, drop);
+      float out = 0.f;
+#pragma unroll
+      for (int k = 0; k < kS; k++) {
+        const float v = __fadd_rn(s[k], m[k * kS + i]);
+        out = k == 0 ? v : fmaxf(out, v);
+      }
+      if (live) __stcs(fo + t * kS + i, out);
+#pragma unroll
+      for (int k = 0; k < kS; k++) s[k] = __shfl_sync(kFull, out, k, 8);
+    }
+    __syncwarp();  // the ring is read: the next unit may refill it
+    mark(5);
   }
 }
 
@@ -478,12 +658,6 @@ inline int log2_exact(int n) {
   return k;
 }
 
-// Level k of phase 2's level-major scratch [levels][B][n_k][64], n_k =
-// nch >> k.
-inline float* level(float* base, int B, int nch, int k) {
-  return base + (long long)B * (2LL * nch - 2LL * (nch >> k)) * 64;
-}
-
 }  // namespace
 
 extern "C" {
@@ -496,35 +670,39 @@ extern "C" {
 
 // f [B, nch*128, 8] from A [B, nch*128, 8, 8] and s0 [B, 8] (f32, row
 // major); xs and rs are f32 scratch of B * 2 * nch * 64 each; nch is a
-// power of two.
+// power of two.  xs holds the units' T and Pinc (a matrix each a unit of
+// 4 chunks: B * nch * 32 floats at most) and the ticket counter, set to
+// all ones here on the caller's stream; a build with NPT_FWD_TRACE set
+// stamps each unit's events into rs (8 words a unit).
 int npt_chain_forward(const void* A, const void* s0, int B, int nch,
                       void* xs, void* rs, void* f, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const float* a = static_cast<const float*>(A);
-  float* X = static_cast<float*>(xs);
-  float* R = static_cast<float*>(rs);
-  const int n_groups = B * nch;
-  NPT_LAUNCH(blocks_for(8LL * n_groups), kThreads, 0, st, fwd_chunks)(
-      a, n_groups, X);
+  const int n_chunks = B * nch;
+  const int n_units = (n_chunks + kUnit - 1) / kUnit;
+  float* T = static_cast<float*>(xs);
+  float* Pinc = T + (long long)n_units * 64;
+  int* ticket = reinterpret_cast<int*>(Pinc + (long long)n_units * 64);
+  cudaMemsetAsync(T, 0xff, (2LL * n_units * 64 + 1) * sizeof(float), st);
   NPT_CHECK();
-  const int K = log2_exact(nch);
-  for (int k = 0; k < K; k++) {
-    const int n_out = nch >> (k + 1);
-    NPT_LAUNCH(blocks_for(8LL * B * n_out), kThreads, 0, st, fwd_up)(
-        level(X, B, nch, k), level(X, B, nch, k + 1), n_out, B);
-    NPT_CHECK();
-  }
-  const float* Rn = level(X, B, nch, K);
-  for (int k = K - 1; k >= 0; k--) {
-    const int n = nch >> k;
-    NPT_LAUNCH(blocks_for(8LL * B * n), kThreads, 0, st, fwd_down)(
-        Rn, level(X, B, nch, k), level(R, B, nch, k), n, B);
-    NPT_CHECK();
-    Rn = level(R, B, nch, k);
-  }
-  NPT_LAUNCH(blocks_for(8LL * n_groups), kThreads, 0, st, fwd_replay)(
-      a, static_cast<const float*>(s0), Rn, nch, n_groups,
-      static_cast<float*>(f));
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  NPT_CHECK();
+  const int want = (n_units + kFwdWarps - 1) / kFwdWarps;
+  const int cap = sms * kFwdBlocksPerSm;
+  const int sm_bytes = kFwdWarps * kWarpFloats * sizeof(float);
+  cudaFuncSetAttribute(fwd_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       sm_bytes);
+  NPT_CHECK();
+#ifdef NPT_FWD_TRACE
+  uint64_t* trace = static_cast<uint64_t*>(rs);
+#else
+  uint64_t* trace = nullptr;
+#endif
+  NPT_LAUNCH(want < cap ? want : cap, kFwdWarps * 32, sm_bytes, st,
+             fwd_scan)(static_cast<const float*>(A),
+                       static_cast<const float*>(s0), nch, n_chunks, n_units,
+                       T, Pinc, ticket, static_cast<float*>(f), trace);
   NPT_CHECK();
   return 0;
 }

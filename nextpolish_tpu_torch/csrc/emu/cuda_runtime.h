@@ -11,11 +11,13 @@
 // between blocks.
 #include <math.h>
 #include <stddef.h>
+#include <stdlib.h>
 #include <stdint.h>
 #include <string.h>
 
 #include <algorithm>
 #include <barrier>
+#include <chrono>
 #include <functional>
 #include <memory>
 #include <thread>
@@ -69,6 +71,39 @@ template <class T>
 T __ldg(const T* p) {
   return *p;
 }
+template <class T>
+void __stcs(T* p, T v) {
+  *p = v;
+}
+// chain_scan.cu's L2 policies, polling load and timer (inline PTX on the
+// card)
+inline uint64_t npt_l2_keep() { return 0; }
+inline uint64_t npt_l2_drop() { return 0; }
+inline float4 npt_ld_volatile4(const float4* q) {
+  const int* p = reinterpret_cast<const int*>(q);
+  int v[4];
+  for (int k = 0; k < 4; k++) v[k] = __atomic_load_n(p + k, __ATOMIC_ACQUIRE);
+  float4 r;
+  memcpy(&r, v, 16);
+  return r;
+}
+inline uint64_t npt_globaltimer() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  memcpy(&u, &x, 4);
+  return u;
+}
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+// a waiting thread gives its core to the others (a launch's blocks run
+// one at a time, so a wait is only ever on a thread of the same block)
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+inline void __trap() { abort(); }
 // single roundings, as on the card (g++ builds this without -ffast-math
 // and for a target without FMA)
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -135,6 +170,9 @@ inline unsigned __ballot_sync(unsigned, int pred) {
     m |= static_cast<unsigned>(emu_shfl(pred != 0, 3, l)) << l;
   return m;
 }
+inline bool __all_sync(unsigned, int pred) {
+  return __ballot_sync(0xffffffffu, pred) == 0xffffffffu;
+}
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
 inline void __syncwarp() { emu_blk->wbar[threadIdx.x >> 5]->arrive_and_wait(); }
@@ -143,6 +181,20 @@ inline long long clock64() { return 0; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return 0;
+}
+// the H100's 132 SMs
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 132;
+  return 0;
+}
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  memset(p, v, n);
+  return 0;
+}
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
@@ -209,6 +261,7 @@ EmuLaunch<F> emu_launcher(int grid, int block, size_t sm, F* kernel) {
 #define NPT_EMU 1
 #define NPT_DYNAMIC_SMEM(name) uint8_t* name = emu_smem_base
 #define NPT_CP_ASYNC16(dst, src) memcpy(dst, src, 16)
+#define NPT_CP_ASYNC16_HINT(dst, src, pol) ((void)(pol), memcpy(dst, src, 16))
 #define NPT_CP_ASYNC_COMMIT() ((void)0)
 #define NPT_CP_ASYNC_WAIT(n) ((void)0)
 #define NPT_LAUNCH(grid, block, sm, stream, ...) \

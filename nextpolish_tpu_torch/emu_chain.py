@@ -2,7 +2,7 @@
 versions: a check of the kernels' logic before a build on the card.
 
     python -m nextpolish_tpu_torch.emu_chain [--src FILE.cu] [--lg-walk K] \
-        [B,NCH ...]
+        [--big] [B,NCH ...]
 
 g++ builds the source as it stands against csrc/emu/cuda_runtime.h (see
 emu_band.py: one std::thread per CUDA thread, a launch runs its blocks one
@@ -10,13 +10,17 @@ at a time), bound like the card's build (ops/chain.py::bind).  For each
 (B, NCH) it runs chain_traceback on random pointer tables, each row
 padded with identity maps past a random n_dp, as the wrappers call it on
 a card, and compares the choices with traceback_batch_plain; and
-chain_forward on random half-integer matrices with NEG entries, bit for
-bit with forward_states_plain, where B x NCH is at most FORWARD_CHUNKS
-(its emulation is slow).  --lg-walk builds the source with tb_walk's
-most threads cut to 2^K, so that small rows reach its routes of several
-warps and of several group maps a thread (a group is 8 chunks).
-Exits 1 on a difference.  It finds wrong logic; it cannot find a race
-between blocks, a compile error of nvcc, or a time.
+chain_forward on random half-integer matrices with NEG entries (with
+--big: magnitudes whose chunk products pass 2^24, where f32 rounds and
+the look-back's order of combining shows in the bits), bit for bit with
+forward_states_plain, where B x NCH is at most FORWARD_CHUNKS.  The
+emulated launch runs its blocks one at a time, so a unit's look-back
+waits only on warps of the same block, which run beside it.  --lg-walk
+builds the source with tb_walk's most threads cut to 2^K, so that small
+rows reach its routes of several warps and of several group maps a
+thread (a group is 8 chunks).  Exits 1 on a difference.  It finds wrong
+logic; it cannot find a race between blocks, a compile error of nvcc, or
+a time.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from .ops import chain as tch
 # groups (a warp of tb_walk, a group a thread), many rows of one and two
 # chunks (a block a row)
 SHAPES = ("1,1", "1,2", "1,256", "64,1", "64,2", "3,4")
-FORWARD_CHUNKS = 8
+FORWARD_CHUNKS = 128
 
 
 def pointer_case(seed: int, B: int, nch: int):
@@ -49,11 +53,16 @@ def pointer_case(seed: int, B: int, nch: int):
     return torch.from_numpy(P), torch.from_numpy(b_end)
 
 
-def forward_case(seed: int, B: int, nch: int):
-    """Random A [B, L, 8, 8] (half-integers, 30% NEG) and s0 [B, 8]."""
+def forward_case(seed: int, B: int, nch: int, big: bool = False):
+    """Random A [B, L, 8, 8] (half-integers, 30% NEG; or, with `big`,
+    multiples of 1000.5 up to 10^6, as test_torch_chain draws them) and
+    s0 [B, 8]."""
     rng = np.random.default_rng(seed)
-    A = rng.integers(-40, 40, (B, tch.CHUNK * nch, 8, 8)) * 0.5
-    A[rng.random(A.shape) < 0.3] = tch.NEG
+    if big:
+        A = rng.integers(-1000, 1000, (B, tch.CHUNK * nch, 8, 8)) * 1000.5
+    else:
+        A = rng.integers(-40, 40, (B, tch.CHUNK * nch, 8, 8)) * 0.5
+        A[rng.random(A.shape) < 0.3] = tch.NEG
     s0 = np.where(rng.random((B, 8)) < 0.5, 0.0, tch.NEG)
     s0[:, 0] = 0.0
     return (torch.from_numpy(A.astype(np.float32)),
@@ -90,6 +99,7 @@ def main(argv=None) -> int:
     p.add_argument("shapes", nargs="*", default=list(SHAPES))
     p.add_argument("--src", default=tch._SRC)
     p.add_argument("--lg-walk", type=int)
+    p.add_argument("--big", action="store_true")
     args = p.parse_args(argv)
     defs = [] if args.lg_walk is None else [f"-DNPT_LG_WALK={args.lg_walk}"]
     lib = tch.bind(build(args.src, defs))
@@ -103,7 +113,7 @@ def main(argv=None) -> int:
         msg = f"traceback {'equal' if same else 'DIFFERS'}"
         bad += not same
         if B * nch <= FORWARD_CHUNKS:
-            A, s0 = forward_case(i, B, nch)
+            A, s0 = forward_case(i, B, nch, args.big)
             fs = torch.equal(forward(lib, A, s0).view(torch.int32),
                              tch.forward_states_plain(A, s0).view(
                                  torch.int32))

@@ -482,19 +482,21 @@ def _encode_records(recs: list):
     packed = (padded[0::2] << 4) | padded[1::2]
     rec_len = 36 + l_name + 4 * n_cig + l_pack + l_qual + l_tag
     start = np.cumsum(rec_len) - rec_len
+    cols = {"block_size": rec_len - 4,
+            "tid": [r["tid"] for r in recs],
+            "pos": pos,
+            "l_read_name": l_name,
+            "mapq": [r.get("mapq", 0) for r in recs],
+            "bin": _reg2bin(pos, pos + np.maximum(span, 1)),
+            "n_cigar": n_cig,
+            "flag": [r.get("flag", 0) for r in recs],
+            "l_seq": l_seq,
+            "mtid": [r.get("mtid", -1) for r in recs],
+            "mpos": [r.get("mpos", -1) for r in recs],
+            "tlen": [r.get("tlen", 0) for r in recs]}
     fixed = np.zeros(n, _FIXED)
-    fixed["block_size"] = rec_len - 4
-    fixed["tid"] = [r["tid"] for r in recs]
-    fixed["pos"] = pos
-    fixed["l_read_name"] = l_name
-    fixed["mapq"] = [r.get("mapq", 0) for r in recs]
-    fixed["bin"] = _reg2bin(pos, pos + np.maximum(span, 1))
-    fixed["n_cigar"] = n_cig
-    fixed["flag"] = [r.get("flag", 0) for r in recs]
-    fixed["l_seq"] = l_seq
-    fixed["mtid"] = [r.get("mtid", -1) for r in recs]
-    fixed["mpos"] = [r.get("mpos", -1) for r in recs]
-    fixed["tlen"] = [r.get("tlen", 0) for r in recs]
+    for field, values in cols.items():
+        fixed[field] = _in_range(field, values)
     out = np.empty(int(rec_len.sum()), np.uint8)
     at = start
     for lens, part in (
@@ -507,6 +509,21 @@ def _encode_records(recs: list):
         _place(out, at, lens, part)
         at = at + lens
     return out.tobytes(), rec_len, pos, span
+
+
+def _in_range(field: str, values) -> np.ndarray:
+    """values as int64, or struct.error where the per-record writer's
+    struct.pack of the fixed fields would raise it: a value that does not
+    fit the field's type (a read name past 254 characters, more than
+    65,535 CIGAR ops, a mapq, flag or bin out of range, an int32 field
+    past its range) is refused, never wrapped."""
+    v = np.asarray(values, dtype=np.int64)
+    info = np.iinfo(_FIXED[field])
+    bad = (v < info.min) | (v > info.max)
+    if bad.any():
+        raise struct.error(f"BAM record field {field} = {v[bad][0]} is "
+                           f"outside {info.min}..{info.max}")
+    return v
 
 
 def _reg2bin(beg: np.ndarray, end: np.ndarray) -> np.ndarray:

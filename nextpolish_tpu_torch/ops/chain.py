@@ -588,6 +588,61 @@ def forward_states_plain(A: torch.Tensor, s0: torch.Tensor,
     return f.reshape(B, L, S)
 
 
+# chunks a ticket of chain_forward (csrc/chain_scan.cu's kUnit)
+FORWARD_UNIT = 4
+
+
+def lookback_scan(x: list, op) -> list:
+    """Inclusive prefixes of x (one row: a power-of-two count of
+    elements) under op, combined in chain_forward's order, for a test
+    against jax.lax.associative_scan with an op that is not associative.
+    Units of FORWARD_UNIT elements (or the whole row, if shorter): the
+    unit's tree, level l combining the level below pairwise; with 2^k the
+    lowest set bit of u + 1, T(u) = T(u - 2^(k-1)) op ( ... op (T(u - 1)
+    op N)), N the unit's tree, and Pinc(u) = Pinc(u - 2^k) op T(u), or
+    T(u) when u + 1 = 2^k; inside a unit, element p's prefix is
+    Pinc(p - 2^k) op T(p), 2^k the lowest set bit of p + 1, or Pinc(u - 1)
+    op T(p) when p + 1 = 2^k (T(p) itself in the first unit), T(p) the
+    unit's tree over the 2^k elements that end at p."""
+    def lowbit(v):
+        return (v & -v).bit_length() - 1
+
+    n = len(x)
+    m = min(n, FORWARD_UNIT)
+    lm = m.bit_length() - 1
+    T, Pinc, out = {}, {}, []
+    for u in range(n // m):
+        levels = [x[m * u:m * (u + 1)]]
+        for _ in range(lm):
+            below = levels[-1]
+            levels.append([op(below[2 * g], below[2 * g + 1])
+                           for g in range(len(below) // 2)])
+
+        def tree(p):
+            lv = min(lowbit(p + 1), lm)
+            return levels[lv][p >> lv]
+
+        pin = {}
+        for p in range(m - 1):
+            k = lowbit(p + 1)
+            if p + 1 != 1 << k:
+                pin[p] = op(pin[p - (1 << k)], tree(p))
+            elif u == 0:
+                pin[p] = tree(p)
+            else:
+                pin[p] = op(Pinc[u - 1], tree(p))
+        acc = levels[lm][0]
+        k = lowbit(u + 1)
+        for j in range(k):
+            acc = op(T[u - (1 << j)], acc)
+        T[u] = acc
+        if u + 1 != 1 << k:
+            acc = op(Pinc[u - (1 << k)], acc)
+        Pinc[u] = acc
+        out += [pin[p] for p in range(m - 1)] + [acc]
+    return out
+
+
 def traceback_batch_plain(P: torch.Tensor, b_end: torch.Tensor,
                           chunk: int = CHUNK) -> torch.Tensor:
     """traceback_batch in plain PyTorch ops, on any device, as the JAX

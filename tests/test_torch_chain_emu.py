@@ -7,9 +7,13 @@ every route: groups of one, two, four and eight chunks; tb_walk with
 fewer groups a row than a warp's threads, with one group a thread, and
 (in a build with tb_walk's threads cut to 64) with several warps and
 several groups a thread; and chain_forward's f bit-equal to
-forward_states_plain at small rows.  The card's build is held to the
-same plain versions by tests/test_torch_gpu.py; this keeps the source's
-logic checked where there is no card."""
+forward_states_plain at rows of 1, 2 and 4 chunks (units of four chunks
+spanning rows, a unit whose last groups run past the end) and at 64
+chunks a row and 16 a row over four rows (16 and 4 units a row: the
+look-back four and two levels deep), also with products past 2^24, where
+another order of combining the units gives other bits.  The card's build
+is held to the same plain versions by tests/test_torch_gpu.py; this
+keeps the source's logic checked where there is no card."""
 import shutil
 
 import pytest
@@ -17,12 +21,12 @@ import pytest
 from nextpolish_tpu_torch import emu_chain
 
 
-@pytest.mark.parametrize("lg_walk,shapes", [
-    (None, ["1,1", "1,2", "1,256", "64,1", "64,2", "2,4"]),
-    (6, ["1,1024", "2,64"]),
-], ids=["card-build", "walk-64-threads"])
-def test_chain_source_matches_plain_under_emulation(lg_walk, shapes):
+@pytest.mark.parametrize("args", [
+    ["1,1", "1,2", "1,256", "64,1", "64,2", "2,4", "3,2"],
+    ["--lg-walk", "6", "1,1024", "2,64"],
+    ["--big", "1,64", "4,16", "5,1"],
+], ids=["card-build", "walk-64-threads", "forward-big"])
+def test_chain_source_matches_plain_under_emulation(args):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the emulation")
-    args = shapes if lg_walk is None else ["--lg-walk", str(lg_walk), *shapes]
     assert emu_chain.main(args) == 0

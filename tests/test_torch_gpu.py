@@ -229,7 +229,7 @@ def _scan_inputs(seed, B, L, live, big=False):
     return A, s0, P, b_end
 
 
-def _scan_inputs_on_card(seed, B, L, live, dev):
+def _scan_inputs_on_card(seed, B, L, live, dev, big=False):
     """_scan_inputs' kinds of inputs drawn on the card (large rows)."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -239,8 +239,12 @@ def _scan_inputs_on_card(seed, B, L, live, dev):
         return torch.randint(lo, hi, shape, generator=g, device=dev,
                              dtype=dtype)
 
-    A = draw(B, L, 8, 8, lo=-40, hi=40, dtype=torch.int8).float() * 0.5
-    A[draw(B, L, 8, 8) < 0.3] = float(tch.NEG)
+    if big:
+        A = draw(B, L, 8, 8, lo=-1000, hi=1000, dtype=torch.int16).float()
+        A *= 1000.5
+    else:
+        A = draw(B, L, 8, 8, lo=-40, hi=40, dtype=torch.int8).float() * 0.5
+        A[draw(B, L, 8, 8) < 0.3] = float(tch.NEG)
     eye = torch.full((8, 8), float(tch.NEG), device=dev).fill_diagonal_(0.0)
     P = draw(B, L, 8, lo=0, hi=8)
     n_dp = draw(B, lo=1, hi=L + 1, dtype=torch.int64).tolist()
@@ -273,31 +277,58 @@ def _hold_chain(dev, A, s0, P, b_end):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,L", [(1, 128), (8, 128), (1, 1 << 15),
-                                 (8, 1 << 15), (64, 128), (128, 256),
-                                 (1, 1 << 19), (1, 1 << 23)])
+@pytest.mark.parametrize("B,L,big", [
+    (1, 128, False), (8, 128, False), (1, 1 << 15, False),
+    (8, 1 << 15, False), (64, 128, False), (128, 256, False),
+    (1, 1 << 19, False), (1, 1 << 23, False), (1, 1 << 19, True),
+    (1, 1 << 23, True)])
 @pytest.mark.parametrize("live", [1, 8])
-def test_chain_kernels_match_plain_on_card(cuda_device, B, L, live):
+def test_chain_kernels_match_plain_on_card(cuda_device, B, L, big, live):
     """L = 128 (one chunk, no tree) and 2^15 cells (256 chunks), one row
     and eight rows in one launch; many rows of one and two chunks (the
-    traceback's walk takes a block of one warp a row, most threads idle);
-    a window of the window route (2^19 cells, 4,096 chunks: several chunk
-    maps a walk thread) and task 1's largest launch (2^23 cells, 65,536
-    chunks, inputs drawn on the card); s0 with one and with eight live
-    states, rows all padding past n_dp."""
-    seed = B * L + live
+    traceback's walk takes a block of one warp a row, most threads idle;
+    the forward scan's units of four chunks span rows); a window of the
+    window route (2^19 cells, 4,096 chunks: several chunk maps a walk
+    thread) and task 1's largest launch (2^23 cells, 65,536 chunks,
+    inputs drawn on the card), also with `big` matrices whose products
+    pass 2^24 (the forward scan's look-back order shows in the bits); s0
+    with one and with eight live states, rows all padding past n_dp."""
+    seed = B * L + live + big
     if B * L >= 1 << 19:
         _hold_chain(cuda_device, *_scan_inputs_on_card(seed, B, L, live,
-                                                       cuda_device))
+                                                       cuda_device, big))
     else:
-        _hold_chain(cuda_device, *_scan_inputs(seed, B, L, live))
+        _hold_chain(cuda_device, *_scan_inputs(seed, B, L, live, big))
 
 
 @pytest.mark.gpu
-def test_chain_forward_past_2_pow_24_on_card(cuda_device):
+@pytest.mark.parametrize("B,L", [(2, 128 * 64), (1, 128 * 4096),
+                                 (1, 128 * 65536)])
+def test_chain_forward_past_2_pow_24_on_card(cuda_device, B, L):
     """Chunk products past 2^24 round: the kernel's association of the
-    products is the plain version's, so f stays bit-equal."""
-    _hold_chain(cuda_device, *_scan_inputs(24, 2, 128 * 64, 8, big=True))
+    products is the plain version's, so f stays bit-equal, at 64 chunks a
+    row and at 4,096 and 65,536 (a window, task 1's largest launch)."""
+    if B * L >= 1 << 19:
+        _hold_chain(cuda_device, *_scan_inputs_on_card(24, B, L, 8,
+                                                       cuda_device, True))
+    else:
+        _hold_chain(cuda_device, *_scan_inputs(24, B, L, 8, big=True))
+
+
+@pytest.mark.gpu
+def test_chain_forward_repeats_bit_equal_on_card(cuda_device):
+    """Twenty launches at task 1's largest shape (65,536 chunks, products
+    past 2^24) each give the plain version's f bit for bit: the units'
+    look-back waits on flags other warps raise, and a race between them
+    would show as a launch that differs."""
+    A, s0, _, _ = _scan_inputs_on_card(20, 1, 1 << 23, 8, cuda_device, True)
+    want = tch.forward_states_plain(A, s0).view(torch.int32)
+    before = tch.forward_states.launches
+    for _ in range(20):
+        got = tch.forward_states(A, s0)
+        torch.cuda.synchronize(cuda_device)
+        assert torch.equal(got.view(torch.int32), want)
+    assert tch.forward_states.launches == before + 20
 
 
 @pytest.mark.gpu

@@ -6,6 +6,7 @@ and its index against the JAX package's writer (the port's writer's
 origin), byte for byte, on short reads, long reads with an insertion
 hotspot, and records with qualities, tags and no CIGAR."""
 import filecmp
+import struct
 
 import numpy as np
 import pytest
@@ -114,3 +115,48 @@ def test_write_bam_matches_record_writer(tmp_path, name):
     assert filecmp.cmp(got, want, shallow=False)
     assert filecmp.cmp(got + ".bai", want + ".bai", shallow=False)
     assert len(pb.read_bam(got)) == len(recs)
+
+
+def _edge_record(**kw):
+    """One mapped record of 16 bases, with fields of `kw` replaced."""
+    rec = dict(name="r", tid=0, pos=100, mapq=60, flag=0,
+               cigar=np.array([16 << 4], np.uint32),
+               seq_nib=pb.seq_to_nib(b"ACGTACGTACGTACGT"))
+    rec.update(kw)
+    return rec
+
+
+_OUT_OF_RANGE = {  # the fixed fields' types: "<iiBBHHHiiii"
+    "cigar_70000_ops": dict(cigar=np.full(70_000, 1 << 4, np.uint32)),
+    "name_300_chars": dict(name="n" * 300),
+    "mapq_256": dict(mapq=256),
+    "flag_70000": dict(flag=70_000),
+    "flag_negative": dict(flag=-1),
+    "pos_past_int32": dict(pos=1 << 31),
+    "tlen_past_int32": dict(tlen=-(1 << 31) - 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_OUT_OF_RANGE))
+def test_write_bam_refuses_fields_out_of_range(tmp_path, case):
+    """A record whose fixed fields do not fit their types (more CIGAR ops
+    than a u16 holds, a read name past a u8's length, a mapq, flag or
+    int32 out of range) makes both packages' write_bam raise struct.error,
+    where a bulk encoding would wrap the value into a corrupt record."""
+    recs = [_edge_record(), _edge_record(**_OUT_OF_RANGE[case])]
+    for mod, name in ((pb, "got.bam"), (jbam, "want.bam")):
+        with pytest.raises(struct.error):
+            mod.write_bam(str(tmp_path / name),
+                          mod.BamHeader("", ["c"], [1 << 20]), recs)
+
+
+def test_write_bam_fields_at_their_limits_match(tmp_path):
+    """Records at the limits (65,535 CIGAR ops, a 254-character name, mapq
+    255, flag 65,535) stay byte-equal to the JAX package's writer."""
+    recs = [_edge_record(cigar=np.full(65_535, 1 << 4, np.uint32),
+                         seq_nib=np.zeros(65_535, np.uint8)),
+            _edge_record(name="n" * 254, mapq=255, flag=65_535, pos=200)]
+    got, want = str(tmp_path / "got.bam"), str(tmp_path / "want.bam")
+    pb.write_bam(got, pb.BamHeader("", ["c"], [1 << 20]), recs)
+    jbam.write_bam(want, jbam.BamHeader("", ["c"], [1 << 20]), recs)
+    assert filecmp.cmp(got, want, shallow=False)

@@ -33,6 +33,14 @@ def _write_inputs(tmp_path, rt):
 def test_worker2_matches_jax(tmp_path, rt, monkeypatch):
     c, fa, bam = _write_inputs(tmp_path, rt)
     monkeypatch.setenv("NPT_CNS_ENGINE", "device")
+    # The JAX worker2 fetches contigs from pipelined_map threads that share
+    # one IndexedBam, whose block reads are not thread-safe there (the
+    # port's copy locks them), so its run here is serial: the FASTA does
+    # not depend on the depth.  The port's side keeps its threads.
+    from nextpolish_tpu.runtime import overlap as jax_overlap
+    serial = jax_overlap.pipelined_map
+    monkeypatch.setattr(jax_overlap, "pipelined_map",
+                        lambda fn, items, depth=2: serial(fn, items, 1))
     out_j = tmp_path / "jax.fa"
     out_t = tmp_path / "torch.fa"
     assert jax_worker2.main(["-g", fa, "-l", bam, "-r", rt,
