@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (nextpolish_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 1] [--contigs 4] [--phases 1,2,3,4,5,6,7]
+    python3 chip_smoke.py [--seed 1] [--contigs 4] [--phases 1,2,3,4,5,6,7,8]
 
 Phases (any failed check exits non-zero; nothing is caught):
   1. build   the engine-2 level-scan kernels (nvcc, sm_90a: the chain and
@@ -116,7 +116,26 @@ Phases (any failed check exits non-zero; nothing is caught):
              recorded on the way, are
              re-run through the plain versions on the card (the first 20,
              one of every (mode, R, B) shape, then more while a time
-             budget lasts; the count is printed) and must be equal.
+             budget lasts; the count is printed) and must be equal;
+  8. main    tasks 3, 4 and legacy 5 on a simulated diploid contig
+             (sim.simulate_diploid_case: 600,000 bp, a heterozygous
+             SNP a kb, PE150 at 40x in total from both haplotypes with
+             phase 5's error model, 10 stretches of 400 bp without read
+             starts, 30x long reads of 3-12 kb from both haplotypes with
+             phase 3's error model; draft = hap1 + 0.5% substitutions),
+             chained as users run them, all --device cuda: worker1 -t 1
+             on the draft, -t 3 -l on its output, -t 4 -l on task 3's,
+             -t 5 -l on the draft, and models.score_chain.
+             td_score_chain_contig on the draft with the long reads (one
+             launch over the contig at the lgs rate 0.33).  Each run of
+             the last four is byte-equal to the same call with --device
+             cpu in this process; every chain-kernel launch equals its
+             plain version on the same card tensors; task 3 must launch
+             the chain kernels (the holes' low-depth rescue) and its
+             output must hold lowercase bases (task 4's input).  Printed:
+             wall and bases/s, kernel and chain launches, cells and
+             (B, L) per run, the het sites task 3 changed, lowercase
+             before and after task 4, differences to hap1 and hap2.
 
 Cuts, all of scale, none of shape: phase 3's number of contigs
 (--contigs, 4 by default, 8 before the aligner's phase); phase 3's plain
@@ -131,12 +150,15 @@ writer before them (tests/test_torch_sim.py); phase 5 prints both
 times.  Depth, read lengths and error rates are not cut;
 phases 5 and 6 are not cut (phase 6(a) lowers the launch cap, not the
 contig: a contig past the real cap needs about 10 M reads, which this
-script's time limit cannot simulate).  --phases runs a subset (the build
-always runs; 6 and 7 need 5).
+script's time limit cannot simulate); phase 8's heterozygous chromosome
+is cut to 600,000 bp (1,000,000 took the phase 193.6 s, past the 150 s
+it may take; its het rate, holes and depths are not cut).
+--phases runs a subset (the build always runs; 6 and 7 need 5).
 
 The last three lines are the kernels' JSON record (the level scan's two
-kernels, one port of the TPU kernel; task 1's two chain kernels; the
-aligner's two kernels; with their launches on each path; each entry's
+kernels, one port of the TPU kernel; task 1's two chain kernels, whose
+launches include phase 8's runs; the aligner's two kernels; with their
+launches on each path; each entry's
 `timer` says what its `ms` is: CUDA events around the wrapper calls, or,
 for the aligner's kernels, the device time), the card's name and power
 limit, and
@@ -1020,6 +1042,12 @@ def task1_main_path(tmp, dev, args, ctx):
         f"{int(got('task1.chain_cells'))}; device DP (task1.kernel, summed "
         f"CUDA events) {got('task1.kernel') * 1e3:.1f} ms; "
         f"max_memory_allocated {peak} B")
+    cells_max = max(h[1][0] * len(h[0]) for h in launches_rec)
+    log(f"task1: max_memory_allocated {peak / cells_max:.1f} B a cell of "
+        f"the largest launch ({cells_max} cells; the routing budget "
+        f"LAUNCH_BYTES_PER_CELL is {sc.LAUNCH_BYTES_PER_CELL})")
+    check(peak <= cells_max * sc.LAUNCH_BYTES_PER_CELL,
+          "task 1's peak device memory passed LAUNCH_BYTES_PER_CELL a cell")
     log("task1: spans (s, thread-summed): " + ", ".join(
         f"{k} {got(k):.3f}" for k in (
             "task1.host", "task1.fetch", "task1.walk", "task1.pack",
@@ -1729,6 +1757,179 @@ def pipeline_main_path(tmp, dev, args, ctx):
     return launches, timed_shapes
 
 
+# ---------------------------------------------------------------------------
+# phase 8: tasks 3, 4 and legacy 5, and the long-read chain variant
+# ---------------------------------------------------------------------------
+
+# a heterozygous chromosome, cut to 600 kb: at 1 Mb phase 8 took 193.6 s
+# on the H100 machine, past the 150 s it may take (half of it the
+# --device cpu reruns)
+DIPLOID_BASES = 600_000
+DIPLOID_DEPTH = 40  # PE150 in total, 20x a haplotype
+HET_RATE = 0.001  # one heterozygous SNP a kb
+HOLES, HOLE_LEN = 10, 400  # stretches without read starts
+DIPLOID_LONG_DEPTH = 30
+
+
+def lowercase(seq: bytes) -> int:
+    return sum(1 for c in seq if c >= 97)
+
+
+def bases_at(truth: bytes, seq: bytes, sites, flank: int = 12) -> list:
+    """The base of seq at each truth position of `sites` (ascending), found
+    after the truth's `flank` bases before it near where the previous
+    site's offset puts it; None where that context is not found."""
+    out, off = [], 0
+    for p in sites.tolist():
+        q = seq.find(truth[p - flank:p], max(0, p + off - 200),
+                     p + off + 200)
+        if p < flank or q < 0 or q + flank >= len(seq):
+            out.append(None)
+            continue
+        off = q - (p - flank)
+        out.append(seq[q + flank])
+    return out
+
+
+def snp_main_path(tmp, dev, args):
+    """Phase 8: worker1 -t 1, -t 3 -l on its output, -t 4 -l on task 3's,
+    -t 5 -l on the draft, and td_score_chain_contig on the draft with
+    the long reads, all on the card, on a simulated diploid contig; each
+    of the last four byte-equal to its --device cpu run in this process,
+    and every chain-kernel launch of the card runs equal to its plain
+    version.  Returns the chain-kernel launches of each card run."""
+    import numpy as np
+    import torch
+
+    from nextpolish_tpu_torch import sim, worker1
+    from nextpolish_tpu_torch.io import bam as bamio
+    from nextpolish_tpu_torch.models import score_chain as sc
+    from nextpolish_tpu_torch.runtime import trace
+
+    d = os.path.join(tmp, "diploid")
+    t0 = time.perf_counter()
+    case = sim.simulate_diploid_case(
+        args.seed + 11, [DIPLOID_BASES], DIPLOID_DEPTH, HET_RATE, HOLES,
+        HOLE_LEN, long_depth=DIPLOID_LONG_DEPTH)
+    t1 = time.perf_counter()
+    fa, bam = sim.write_case(case, d)
+    lbam = os.path.join(d, "long.sort.bam")
+    hdr = bamio.BamHeader("", list(case.names),
+                          [len(x) for x in case.drafts])
+    bamio.write_bam(lbam, hdr, case.long_records, index=True)
+    name, hap1, hap2 = case.names[0], case.truths[0], case.hap2s[0]
+    het = np.flatnonzero(np.frombuffer(hap1, np.uint8)
+                         != np.frombuffer(hap2, np.uint8))
+    log(f"snp: simulated {name} ({DIPLOID_BASES} bp, {len(het)} het SNPs, "
+        f"{HOLES} holes of {HOLE_LEN} bp without read starts), "
+        f"{len(case.records)} PE150 reads at {DIPLOID_DEPTH}x and "
+        f"{len(case.long_records)} long reads at {DIPLOID_LONG_DEPTH}x from "
+        f"both haplotypes ({t1 - t0:.1f} s), BAMs "
+        f"({time.perf_counter() - t1:.1f} s)")
+    n_long = len(case.long_records)
+    case.records = case.long_records = None  # the BAMs hold them now
+
+    def card_run(label, fn):
+        """fn on the card: its wall, launches, chain cells and launches
+        (the trace counters), every scan held to its plain version."""
+        with capture_scans() as cap:
+            trace.reset("task1")
+            zero_chain_launches()
+            t = time.perf_counter()
+            out = fn("cuda")
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t
+            launches = chain_launches()
+            snap = trace.snapshot("task1")
+        hold_scans(cap, dev, label)
+        shapes = sorted({tuple(P.shape[:2]) for P, _ in cap.tb})
+        return out, wall, launches, snap, shapes
+
+    def worker(task, genome, reads, out):
+        def fn(device):
+            path = f"{out}.{device}.fa"
+            rc = worker1.main(["-g", genome, *reads, "-t", task, "-o",
+                               path, "--device", device])
+            check(rc == 0, f"worker1 -t {task} --device {device} "
+                  f"returned {rc}")
+            return open(path, "rb").read()
+        return fn
+
+    def td(device):
+        batch = bamio.read_bam(lbam)
+        return sc.td_score_chain_contig(name, case.drafts[0], batch,
+                                        sc.AlgoConfig(), device=device)
+
+    sgs_lgs = ["-s", bam, "-l", lbam]
+    t1_fa = os.path.join(d, "t1.cuda.fa")
+    runs = [
+        ("worker1 -t 1", worker("1", fa, ["-s", bam],
+                                os.path.join(d, "t1"))),
+        ("worker1 -t 3", worker("3", t1_fa, sgs_lgs, os.path.join(d, "t3"))),
+        ("worker1 -t 4", worker("4", os.path.join(d, "t3.cuda.fa"),
+                                sgs_lgs, os.path.join(d, "t4"))),
+        ("worker1 -t 5", worker("5", fa, ["-l", lbam],
+                                os.path.join(d, "t5"))),
+        ("td_score_chain_contig", td),
+    ]
+    by_path, seqs = {}, {}
+    for label, fn in runs:
+        out, wall, launches, snap, shapes = card_run(label, fn)
+        seq = out if label == "td_score_chain_contig" else \
+            out.split(b"\n")[1]
+        seqs[label] = seq
+        by_path[label] = launches
+        cells = int(snap.get("task1.chain_cells", {}).get("s", 0))
+        n_chain = int(snap.get("task1.chain_launches", {}).get("n", 0))
+        same = None
+        if label != "worker1 -t 1":
+            t = time.perf_counter()
+            cpu = fn("cpu")
+            cpu_s = time.perf_counter() - t
+            same = cpu == out
+        log(f"snp: {label}: wall {wall:.2f} s, {len(seq)} bases, "
+            f"{len(seq) / wall:.0f} bases/s; kernel launches {launches}, "
+            f"chain launches {n_chain}, cells {cells}, (B, L) {shapes}; "
+            f"lowercase {lowercase(seq)}; differences to hap1 "
+            f"{differences(hap1, seq)}, to hap2 {differences(hap2, seq)}"
+            + ("" if same is None else
+               f"; --device cpu ({cpu_s:.2f} s) "
+               f"{'byte-equal' if same else 'DIFFERENT'}"))
+        check(same is not False, f"{label}: --device cuda differs from "
+              "--device cpu")
+        if label not in ("worker1 -t 4", "worker1 -t 5"):  # host only
+            for k, n in launches.items():
+                check(n > 0, f"{label} launched {k} no time")
+    from nextpolish_tpu_torch.io.bamregion import IndexedBam
+
+    fetch_s = {}
+    for kind, path in (("short", bam), ("long", lbam)):
+        t = time.perf_counter()
+        src = IndexedBam(path)
+        n_rec = len(src.fetch(0, 0, DIPLOID_BASES - 1))
+        fetch_s[kind] = (time.perf_counter() - t, n_rec)
+    log("snp: one region fetch of the contig (IndexedBam, as each worker1 "
+        "run makes per BAM): " + ", ".join(
+            f"{k} reads {v[0]:.2f} s ({v[1]} records)"
+            for k, v in fetch_s.items()))
+    log(f"snp: the draft: differences to hap1 "
+        f"{differences(hap1, case.drafts[0])}, to hap2 "
+        f"{differences(hap2, case.drafts[0])}; {n_long} long reads")
+    a1 = bases_at(hap1, seqs["worker1 -t 1"].upper(), het)
+    a3 = bases_at(hap1, seqs["worker1 -t 3"].upper(), het)
+    both = [(x, y, hap2[p]) for x, y, p in zip(a1, a3, het.tolist())
+            if x is not None and y is not None]
+    log(f"snp: task 3 changed {sum(x != y for x, y, _ in both)} of the "
+        f"{len(both)} het sites found in both outputs (of {len(het)}); "
+        f"{sum(y == b for _, y, b in both)} carry hap2's base after it, "
+        f"{sum(x == b for x, _, b in both)} before")
+    low = lowercase(seqs["worker1 -t 3"])
+    log(f"snp: lowercase before task 4 (task 3's output) {low}, after "
+        f"{lowercase(seqs['worker1 -t 4'])}")
+    check(low > 0, "task 4's input (task 3's output) holds no lowercase")
+    return by_path
+
+
 def band_records(launches, timed_shapes, checks):
     """The aligner kernels' entries of the kernels line: the times of the
     main path's short-read launch, the other shapes beside them."""
@@ -1765,7 +1966,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--contigs", type=int, default=4)
-    p.add_argument("--phases", default="1,2,3,4,5,6,7",
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                    help="phases to run (the build always runs; 6 and 7 "
                         "need 5)")
     args = p.parse_args(argv)
@@ -1842,6 +2043,19 @@ def main(argv=None) -> int:
             recs += band_records(launches, timed_shapes, checks)
             log(f"phase 7 took {time.perf_counter() - t0:.1f} s (the "
                 f"pipeline {time.perf_counter() - t1:.1f} s)")
+        if 8 in phases:
+            t0 = time.perf_counter()
+            by_path = snp_main_path(tmp, dev, args)
+            for rec in recs:
+                k = rec["name"]
+                if k not in CHAIN_KERNELS:
+                    continue
+                by = rec.setdefault("launches_by_path",
+                                    {"main": rec["launches"]})
+                for path, n in by_path.items():
+                    by[f"phase 8: {path}"] = n[k]
+                    rec["launches"] += n[k]
+            log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -23,11 +23,14 @@ byte-exact state chaining and backward stitch.
 Also provides `score_correct_region`, the shared regional correction used
 by the kmer_count no-depth rescue (contig_score_correct,
 lib/contig.c:706-734), on the dense chain DP (ops/chain.py
-run_chain_batch) and the planes launch (dispatch_chain_sparse).
+run_chain_batch) and the planes launch (dispatch_chain_sparse); the long-
+read chain variant `td_score_chain_contig` (td_score_chain1,
+lib/scorechain.c:17-29) on it at filter level 1 and the lgs rate; and
+`run_chain_region`, one region on the planes path (task 3's low-depth
+rescue, models/snp_phase.py).
 
 Not ported here: score_chain_pipeline_multichip, the several-shard route
-and the round-robin over several devices (ROADMAP A6.2), and
-td_score_chain_contig (legacy task 5, A4).
+and the round-robin over several devices (ROADMAP A6.2).
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ from ..ops.chain import (
     pack_chain_planes,
     pack_chain_planes_parts,
     pad_to_chunk,
+    run_chain,
     run_chain_batch,
 )
 from ..ops.symbols import K3, S
@@ -151,6 +155,16 @@ def _coverage_of(counts: np.ndarray, choice: np.ndarray) -> np.ndarray:
     n = len(choice)
     lane = counts.reshape(n, S * S, S)[np.arange(n), :, choice.astype(np.int64)]
     return lane.sum(axis=1, dtype=np.int64)
+
+
+def run_chain_region(counts: np.ndarray, refkmer: np.ndarray,
+                     total: np.ndarray, n_dp: int, rate: float,
+                     rank: np.ndarray | None = None,
+                     device=None) -> np.ndarray:
+    """One region's choices [n_dp] from its dense pileup, the chain DP on
+    `device` (default cuda)."""
+    return run_chain(counts, refkmer, total, n_dp, rate, rank=rank,
+                     device=device)
 
 
 def score_correct_region(state: ContigState, batch: AlnBatch,
@@ -620,3 +634,21 @@ def score_chain_contig_windowed(name: str, draft: bytes, batch: AlnBatch,
     _finish_correction_sparse(state, n_dp, cell0, packed, cfg)
     maybe_trace(cfg, name, state, draft)
     return state.emit(FLAG_ZERO | FLAG_COVERAGE)
+
+
+def td_score_chain_contig(name: str, draft: bytes, batch: AlnBatch,
+                          cfg: AlgoConfig, device=None) -> bytes:
+    """Legacy long-read chain variant (td_score_chain1, lib/scorechain.c:17-29):
+    lgs filter, lgs balance factor, no lowercase flags in output.  The
+    chain DP runs on `device` (default cuda), one launch for the contig."""
+    tid = batch.header.name2id(name)
+    L = len(draft)
+    levels = pl.filter_lgs(batch, cfg.max_clip_ratio_lgs)
+    index = pl.build_cell_index(batch, levels, tid, 0, L - 1)
+    state = ContigState.from_draft(name, draft, index)
+    contig_nib = ASCII_TO_NIB[np.frombuffer(draft, dtype=np.uint8)]
+    score_correct_region(state, batch, levels, tid, contig_nib, 0, L - 1,
+                         filterlevel=1, rate=cfg.indel_balance_factor_lgs,
+                         cfg=cfg, device=device)
+    maybe_trace(cfg, name, state, draft)
+    return state.emit(0)

@@ -43,12 +43,20 @@ both follow `_forward_states` (sequential compose within 128-cell chunks
 with a renormalisation after every step, lax.associative_scan's tree over
 the chunk products, an unrenormalised replay).  The lattice is built by
 scatter-max over the <= 8 slots instead of JAX's [B, Emax, L, 64]
-one-hot tensor (max is order-free, so the values are the same).
+one-hot tensor (max is order-free, so the values are the same).  The
+emission cn - dec - tot1 * rate rounds as XLA on the CPU rounds it in
+the JAX package: once in the planes core (_emit), twice (the product,
+then the difference) in the dense chain; at a dyadic rate such as the
+sgs 0.5 the product is exact and both agree.
+
+run_chain / run_chain_sparse are the host wrappers of one region on the
+planes path (task 3's low-depth rescue, through
+models/score_chain.run_chain_region).
 
 Not ported: the entries path (chain_correct_packed*, pack_chain_sparse,
 _chain_entries_core, NPT_CHAIN_IMPL=entries), the single dense
-chain_correct, run_chain, run_chain_sparse and init_state_sparse (no
-caller in the port yet) and start_host_copy.
+chain_correct, init_state_sparse (no caller in the JAX package either)
+and start_host_copy.
 """
 from __future__ import annotations
 
@@ -753,6 +761,22 @@ def planes_decode(b32: torch.Tensor, B, L, Emax, EOV, ET, FMT, TH, PS):
         nov, th
 
 
+def _emit(adj: torch.Tensor, tot1: torch.Tensor, rate) -> torch.Tensor:
+    """The emission adj - tot1 * rate as f32, rounded ONCE, as XLA on the
+    CPU computes it in the JAX package (it contracts the expression into
+    one fused multiply-add).  adj (a count, below 2^16) and tot1 (a
+    total, below 2^24) hold integers and rate is the f32 rate, so in f64
+    the product (at most 48 significant bits) and, for rates above 2^-13,
+    the difference (an integer multiple of the rate's last bit, below
+    2^53 of them) are exact; the cast to f32 is then the single rounding.
+    Two f32 operations would round the product first, and differ from
+    the JAX package at rates off the dyadic grid (0.33, 0.47, 0.7; at
+    0.5 the product is exact either way)."""
+    x = adj.double()
+    x -= tot1.double() * torch.as_tensor(rate, dtype=torch.float32).double()
+    return x.float()
+
+
 def _scatter_slots(n_out, index, vals, reduce, init):
     """out[..., s] = reduce over slots j of vals[:, j] where index[:, j] ==
     s, from `init`: index/vals [B, Emax, L] -> [B, L, n_out]."""
@@ -799,7 +823,7 @@ def chain_planes_core(kpl, cpl, refk, total, valid, rate, s0_all, ov, B, L,
     refq = refk.reshape(B, 1, L)
     dec = ((tot > 1) & (kd == refq)).to(f32)
     tot1 = torch.where(tot > 1, tot - 1, tot).to(f32)
-    em = torch.where(occ, cd.to(f32) - dec - tot1 * rate, neg)
+    em = torch.where(occ, _emit(cd.to(f32) - dec, tot1, rate), neg)
     b2 = (kd >> 3) & 7
     b3 = kd & 7
     # transition lattice: max over the slots per (cell, b2*8+b3)
@@ -812,7 +836,7 @@ def chain_planes_core(kpl, cpl, refk, total, valid, rate, s0_all, ov, B, L,
         dec_e = ((tot_e > 1) & (e_kmer == refk[c_cl])).to(f32)
         tot1_e = torch.where(tot_e > 1, tot_e - 1, tot_e).to(f32)
         em_e = torch.where(is_pad, neg,
-                           ovcn.to(f32) - dec_e - tot1_e * rate)
+                           _emit(ovcn.to(f32) - dec_e, tot1_e, rate))
         oe_b2 = (e_kmer >> 3) & 7
         oe_b3 = e_kmer & 7
         segA = torch.where(is_pad, Ltot * 64,
@@ -950,7 +974,9 @@ def emission(counts: torch.Tensor, refkmer: torch.Tensor,
     float, rounded to f32 once (a 0-dim CPU tensor mixes with tensors of
     any device).  The same f32 operations as the JAX function: the
     decrement added as -dec, then adj - tot1*rate as one multiply and one
-    subtract."""
+    subtract, each rounded: unlike the planes core (_emit), XLA does not
+    contract this one into a fused multiply-add (tests/test_torch_chain.py
+    holds both to the JAX package at off-grid rates)."""
     f32 = torch.float32
     cnt = counts.to(f32)
     dec = (total > 1).to(f32)
@@ -1096,6 +1122,36 @@ def run_chain_batch(problems, rate, chunk: int = CHUNK, device=None,
         float(rate), torch.from_numpy(s0).to(dev), chunk, plain)
     out = out.cpu().numpy()
     return [out[i, : p[0].shape[0]] for i, p in enumerate(problems)]
+
+
+def run_chain(counts: np.ndarray, refkmer: np.ndarray, total: np.ndarray,
+              n_dp: int, rate: float, rank: np.ndarray | None = None,
+              chunk: int = CHUNK, device=None) -> np.ndarray:
+    """Host wrapper of one region (tropical.run_chain): sparsify the dense
+    counts [>= n_dp, K3], run the planes DP on `device` (default cuda),
+    return choices[:n_dp] (numpy int8).  `rank` is the dense
+    [>= n_dp, K3] first-observation table; when None the counts'
+    kmer-index order stands in."""
+    flat = counts[:n_dp].reshape(-1)
+    nz = np.flatnonzero(flat)
+    if rank is None:
+        rk = _index_order_ranks(nz)
+    else:
+        rk = rank[:n_dp].reshape(-1)[nz]
+    return run_chain_sparse(nz.astype(np.int64), flat[nz], rk, refkmer,
+                            total, n_dp, rate, chunk, device)
+
+
+def run_chain_sparse(uk_in: np.ndarray, cn_in: np.ndarray,
+                     rk_in: np.ndarray, refkmer: np.ndarray,
+                     total: np.ndarray, n_dp: int, rate: float,
+                     chunk: int = CHUNK, device=None) -> np.ndarray:
+    """Sparse-key host wrapper (tropical.run_chain_sparse): uk_in = sorted
+    cell*K3+kmer keys (any cells >= n_dp are trimmed), cn_in = counts,
+    rk_in = first-observation ranks; the choices [n_dp] (numpy int8)."""
+    packed = dispatch_chain_sparse(uk_in, cn_in, rk_in, refkmer, total,
+                                   n_dp, rate, chunk=chunk, device=device)
+    return packed.cpu().numpy()[:n_dp] & 7
 
 
 def dispatch_chain_sparse(uk_in: np.ndarray, cn_in: np.ndarray,

@@ -19,12 +19,11 @@ Deviations from the reference, by design:
 Where the port differs from the JAX package's driver:
   * every device stage runs on the one `device` the caller names (the
     mapper's banded DP and traceback, task 1's chain DP, task 2's no-depth
-    rescue, the task 5/6 engine chosen by models/cns/window.default_engine);
+    rescue, task 3's low-depth rescue, the task 5/6 engine chosen by
+    models/cns/window.default_engine);
   * task 1 runs score_chain_pipeline, which on one device is what the JAX
     router does; a contig past the single-launch cap takes the window
     route inside it;
-  * tasks 3 and 4 are not ported (ROADMAP A4): a config that schedules
-    them raises before the first round;
   * one process (parallel/hosts.py): several processes are ROADMAP A6.2;
   * a truncated or corrupt .gz read file no longer escapes the spill
     estimate (EOFError, zlib.error): its expansion falls back to 3.0.
@@ -321,6 +320,23 @@ class Pipeline:
                 engine = lambda name, seq: kmer_count_contig(
                     name, seq, per_contig(batch, name, len(seq)), self.algo,
                     self.device)
+        elif task in (3, 4):
+            sgs = self.map_sgs(genome, genome_path)
+            self.algo.read_tlen = estimate_read_tlen(head_of(sgs),
+                                                     self.algo)
+            lgs = (self.map_long(genome, "lgs", genome_path)
+                   if self.cfg.lgs_fofn else None)
+            from .models.snp_phase import snp_phase_contig
+            from .models.snp_valid import snp_valid_contig
+
+            if task == 3:
+                engine = lambda name, seq: snp_phase_contig(
+                    name, seq, per_contig(sgs, name, len(seq)),
+                    per_contig(lgs, name, len(seq)), self.algo, self.device)
+            else:
+                engine = lambda name, seq: snp_valid_contig(
+                    name, seq, per_contig(sgs, name, len(seq)),
+                    per_contig(lgs, name, len(seq)), self.algo)
         elif task in (5, 6):
             kind = "lgs" if task == 5 else "hifi"
             batch = self.map_long(genome, kind, genome_path)
@@ -380,12 +396,6 @@ class Pipeline:
     # ------------------------------------------------------------------
     def run(self) -> str:
         cfg = self.cfg
-        refused = [t for t in cfg.task if t in (3, 4)]
-        if refused:
-            raise NotImplementedError(
-                f"task {refused[0]} is not ported to nextpolish_tpu_torch yet "
-                "(ROADMAP A4: task 3, task 4 and legacy 5); run "
-                "nextpolish_tpu for it")
         if cfg.rewrite:
             moved = backup_dir(cfg.workdir)
             if moved:

@@ -1,5 +1,6 @@
 """Polishing cases with alignments known by construction: long reads
-(`simulate_case`) and paired-end short reads (`simulate_short_case`), as a
+(`simulate_case`), paired-end short reads (`simulate_short_case`) and a
+diploid genome with both (`simulate_diploid_case`), as a
 BAM (`write_case`) or as the read files of a run.cfg project
 (`write_reads`); random sparse pileups for the chain DP alone
 (`random_pileup`); and inputs of the mappers' banded DP alone
@@ -169,52 +170,128 @@ def simulate_short_case(seed: int, contig_lens, depth: float,
     draws (_indel_reads, also in bulk)."""
     rng = np.random.default_rng(seed)
     names, truths, drafts, records = [], [], [], []
-    p_indel = ins + dele
     for tid, L in enumerate(np.atleast_1d(contig_lens)):
-        L = int(L)
-        truth = rng.choice(BASES, L)
+        truth = rng.choice(BASES, int(L))
         names.append(f"ctg{tid}")
         truths.append(truth.tobytes())
         drafts.append(_mutate(rng, truth, draft_sub).tobytes())
-        n_frag = int(round(depth * L / (2 * read_len)))
-        flen = np.clip(np.rint(rng.normal(insert[0], insert[1], n_frag)),
-                       read_len, min(2 * insert[0], L)).astype(np.int64)
-        fstart = rng.integers(0, L - flen + 1)
-        # mate 1 at the fragment's start, mate 2 at its end
-        starts = np.concatenate([fstart, fstart + flen - read_len])
-        mate = np.repeat([0, 1], n_frag)
-        frag = np.tile(np.arange(n_frag), 2)
-        r = rng.random((2 * n_frag, read_len))
-        r[:, 0] = r[:, -1] = 1.0
-        gapless = ~np.any(r < p_indel, axis=1)
-        codes = np.searchsorted(BASES, truth)[
-            starts[:, None] + np.arange(read_len)]
-        is_sub = (r >= p_indel) & (r < p_indel + sub)
-        codes = np.where(is_sub, (codes + rng.integers(1, 4, codes.shape))
-                         % 4, codes)
-        nib_g = bamio._ASCII_TO_NIB[BASES[codes]]
-        cig_g = np.array([read_len << 4 | OP_M], dtype=np.uint32)
-        # reads with an indel: simulate_read's draws, read by read in
-        # order, then the reads themselves in bulk
-        gap = np.flatnonzero(~gapless)
-        nib_i, cig_i = _indel_reads(rng, truth, starts[gap], r[gap], sub,
-                                    ins, dele)
-        nibs, cigars = list(nib_g), [cig_g] * (2 * n_frag)
-        for i, k in enumerate(gap.tolist()):
-            nibs[k], cigars[k] = nib_i[i], cig_i[i]
-        frag_names = [f"p{tid}_{f}" for f in range(n_frag)]
-        # each mate's mpos is the other mate's start: starts rolled by a
-        # half
-        records += [
-            dict(name=frag_names[f], tid=tid, pos=pos, mapq=60,
-                 flag=0x3 | (0x60 if m == 0 else 0x90), cigar=cigar,
-                 seq_nib=nib, mtid=tid, mpos=mpos, tlen=tlen)
-            for m, f, pos, mpos, tlen, nib, cigar in zip(
-                mate.tolist(), frag.tolist(), starts.tolist(),
-                np.roll(starts, n_frag).tolist(),
-                np.concatenate([flen, -flen]).tolist(), nibs, cigars)]
+        records += _pair_records(rng, truth, tid, depth, read_len, insert,
+                                 sub, ins, dele, f"p{tid}_")
     records.sort(key=lambda rec: (rec["tid"], rec["pos"]))
     return SimCase(names, truths, drafts, records)
+
+
+def _pair_records(rng, truth: np.ndarray, tid: int, depth: float,
+                  read_len: int, insert, sub: float, ins: float,
+                  dele: float, prefix: str, holes=()) -> list:
+    """simulate_short_case's read pairs over one truth contig, fragments
+    named prefix + index; a fragment with a mate starting inside one of
+    the (start, end) `holes` is drawn and then dropped."""
+    L = len(truth)
+    p_indel = ins + dele
+    n_frag = int(round(depth * L / (2 * read_len)))
+    flen = np.clip(np.rint(rng.normal(insert[0], insert[1], n_frag)),
+                   read_len, min(2 * insert[0], L)).astype(np.int64)
+    fstart = rng.integers(0, L - flen + 1)
+    # mate 1 at the fragment's start, mate 2 at its end
+    starts = np.concatenate([fstart, fstart + flen - read_len])
+    mate = np.repeat([0, 1], n_frag)
+    frag = np.tile(np.arange(n_frag), 2)
+    r = rng.random((2 * n_frag, read_len))
+    r[:, 0] = r[:, -1] = 1.0
+    gapless = ~np.any(r < p_indel, axis=1)
+    codes = np.searchsorted(BASES, truth)[
+        starts[:, None] + np.arange(read_len)]
+    is_sub = (r >= p_indel) & (r < p_indel + sub)
+    codes = np.where(is_sub, (codes + rng.integers(1, 4, codes.shape))
+                     % 4, codes)
+    nib_g = bamio._ASCII_TO_NIB[BASES[codes]]
+    cig_g = np.array([read_len << 4 | OP_M], dtype=np.uint32)
+    # reads with an indel: simulate_read's draws, read by read in
+    # order, then the reads themselves in bulk
+    gap = np.flatnonzero(~gapless)
+    nib_i, cig_i = _indel_reads(rng, truth, starts[gap], r[gap], sub,
+                                ins, dele)
+    nibs, cigars = list(nib_g), [cig_g] * (2 * n_frag)
+    for i, k in enumerate(gap.tolist()):
+        nibs[k], cigars[k] = nib_i[i], cig_i[i]
+    frag_names = [f"{prefix}{f}" for f in range(n_frag)]
+    keep = np.ones(n_frag, dtype=bool)
+    for h0, h1 in holes:
+        inside = (starts >= h0) & (starts < h1)
+        keep &= ~(inside[:n_frag] | inside[n_frag:])
+    # each mate's mpos is the other mate's start: starts rolled by a
+    # half
+    return [
+        dict(name=frag_names[f], tid=tid, pos=pos, mapq=60,
+             flag=0x3 | (0x60 if m == 0 else 0x90), cigar=cigar,
+             seq_nib=nib, mtid=tid, mpos=mpos, tlen=tlen)
+        for m, f, pos, mpos, tlen, nib, cigar in zip(
+            mate.tolist(), frag.tolist(), starts.tolist(),
+            np.roll(starts, n_frag).tolist(),
+            np.concatenate([flen, -flen]).tolist(), nibs, cigars)
+        if keep[f]]
+
+
+@dataclass
+class DiploidCase(SimCase):
+    hap2s: list  # bytes: the second haplotype of each contig
+    holes: list  # per contig, (start, end) stretches without read starts
+    long_records: list  # long-read BAM record dicts, or [] without them
+
+
+def simulate_diploid_case(seed: int, contig_lens, depth: float,
+                          het_rate: float, holes: int, hole_len: int,
+                          long_depth: float | None = None) -> DiploidCase:
+    """A diploid genome for tasks 3 and 4: per contig, hap1 is random and
+    hap2 is hap1 with a substitution at each base with probability
+    `het_rate` (the heterozygous SNPs); `truths` holds hap1 and the draft
+    is hap1 with 0.5% substitutions.  PE150 read pairs are drawn
+    from each haplotype at depth / 2 with simulate_short_case's error
+    model, fragments of hap1 named a<tid>_<k>, of hap2 b<tid>_<k>.  Each
+    contig has `holes` stretches of `hole_len` bases, one in each of
+    `holes` equal slices at a random offset, where no read starts, so
+    that their far part has no short-read coverage.  With `long_depth`,
+    long reads of 3-12 kb come from each haplotype at
+    long_depth / 2 with simulate_case's error model (3% each of
+    substitutions, insertions and deletions), named l<tid>_<hap>_<k>."""
+    rng = np.random.default_rng(seed)
+    names, truths, drafts, hap2s, all_holes = [], [], [], [], []
+    records, long_records = [], []
+    for tid, L in enumerate(np.atleast_1d(contig_lens)):
+        L = int(L)
+        hap1 = rng.choice(BASES, L)
+        hap2 = _mutate(rng, hap1, het_rate)
+        names.append(f"ctg{tid}")
+        truths.append(hap1.tobytes())
+        hap2s.append(hap2.tobytes())
+        drafts.append(_mutate(rng, hap1, 0.005).tobytes())
+        seg = L // max(holes, 1)
+        starts = [k * seg + int(rng.integers(0, seg - hole_len))
+                  for k in range(holes)]
+        hs = [(h, h + hole_len) for h in starts]
+        all_holes.append(hs)
+        for hap, pre in ((hap1, "a"), (hap2, "b")):
+            records += _pair_records(rng, hap, tid, depth / 2, 150,
+                                     (350, 35), 0.01, 0.002, 0.002,
+                                     f"{pre}{tid}_", hs)
+        if long_depth:
+            mean_len = min(7500, L)
+            for h, hap in enumerate((hap1, hap2)):
+                for k in range(int(round(long_depth / 2 * L / mean_len))):
+                    ln = min(int(rng.integers(3000, 12001)), L)
+                    s = int(rng.integers(0, L - ln + 1))
+                    seq, cigar = simulate_read(rng, hap, s, ln, 0.03, 0.03,
+                                               0.03)
+                    long_records.append(dict(
+                        name=f"l{tid}_{h + 1}_{k}", tid=tid, pos=s,
+                        mapq=60, flag=16 if rng.random() < 0.5 else 0,
+                        cigar=cigar,
+                        seq_nib=bamio.seq_to_nib(seq.tobytes())))
+    records.sort(key=lambda rec: (rec["tid"], rec["pos"]))
+    long_records.sort(key=lambda rec: (rec["tid"], rec["pos"]))
+    return DiploidCase(names, truths, drafts, records, hap2s, all_holes,
+                       long_records)
 
 
 def _indel_reads(rng, truth: np.ndarray, starts: np.ndarray, r: np.ndarray,

@@ -7,8 +7,8 @@ Bring-your-own-BAM workflow (doc/TUTORIAL.rst:50-82):
         -t 1 -o genome.polishtemp.fa [--device cuda|cpu]
     # then re-map against the temp output and run -t 2
 
-Tasks 1 (score_chain) and 2 (kmer_count) are ported; tasks 3-5
-(snp_phase, snp_valid, legacy lgspolish) exit non-zero (ROADMAP A4).
+Tasks: 1=score_chain, 2=kmer_count, 3=snp_phase, 4=snp_valid, 5=legacy
+lgspolish (the long-read chain engine; it reads -l, or -s in its place).
 --device picks where the chain DPs run (default cuda; cuda without a
 usable card raises).  Output records are `>name len\\nseq` like the reference worker;
 resume skips contigs already present in -o.  The flags are the JAX
@@ -25,11 +25,14 @@ from .io.bam import read_bam
 from .io.fasta import FastaIndex
 from .kit import plog
 from .models.kmer_count import kmer_count_contig
+from .models.lgs_polish import lgspolish_contig
 from .models.score_chain import (
     AlgoConfig,
     estimate_read_tlen,
     score_chain_pipeline,
 )
+from .models.snp_phase import snp_phase_contig
+from .models.snp_valid import snp_valid_contig
 from .pipeline import read_polished_names
 
 log = plog()
@@ -38,7 +41,8 @@ log = plog()
 def build_argparser():
     p = argparse.ArgumentParser(
         prog="nextpolish_tpu_torch.worker1",
-        description="Polish a genome with short reads (tasks 1-2).",
+        description="Polish a genome with short reads (tasks 1-4; "
+                    "5 is the legacy long-read chain).",
     )
     p.add_argument("-g", "--genome", required=True)
     p.add_argument("-s", "--bam_sgs", help="sorted BAM of short reads")
@@ -96,7 +100,7 @@ def open_contig_source(path):
 def per_contig(src, name, seqlen):
     """Resolve a BAM source to this contig's AlnBatch.  IndexedBam
     streams per region (htslib bam_itr_queryi role); an in-memory
-    AlnBatch passes through — task 2 expects column arrays
+    AlnBatch passes through — tasks 2-5 expect column arrays
     (batch.flag/tlen/mapq), not a streaming handle."""
     if src is not None and hasattr(src, "fetch"):
         return src.fetch(src.header.name2id(name), 0, max(seqlen - 1, 0))
@@ -105,10 +109,6 @@ def per_contig(src, name, seqlen):
 
 def main(argv=None):
     args, _ = build_argparser().parse_known_args(argv)
-    if args.task not in (1, 2):
-        log.critical("task %d is not ported to nextpolish_tpu_torch yet "
-                     "(ROADMAP A4: task 3, task 4 and legacy 5); run "
-                     "nextpolish_tpu.worker1 for it", args.task)
     device = resolve_device(args.device)
     cfg = AlgoConfig(
         trim_len_edge=args.trim_len_edge,
@@ -136,11 +136,31 @@ def main(argv=None):
     if args.debug:
         cfg.trace_sink = []
     genome = FastaIndex(args.genome)
-    if not args.bam_sgs:
-        log.critical("-s/--bam_sgs is required for tasks 1-2")
-    sgs = open_contig_source(args.bam_sgs)
-    head = sgs.fetch_head(10_000) if hasattr(sgs, "fetch_head") else sgs
-    cfg.read_tlen = estimate_read_tlen(head, cfg)
+    if args.task == 5:
+        # legacy lgspolish: only the long-read BAM is required
+        lgs = open_contig_source(args.bam_lgs or args.bam_sgs)
+        sgs = None
+    else:
+        if not args.bam_sgs:
+            log.critical("-s/--bam_sgs is required for tasks 1-4")
+        sgs = open_contig_source(args.bam_sgs)
+        head = sgs.fetch_head(10_000) if hasattr(sgs, "fetch_head") else sgs
+        cfg.read_tlen = estimate_read_tlen(head, cfg)
+        lgs = open_contig_source(args.bam_lgs) if args.bam_lgs else None
+
+    def engine(n, s):
+        """Tasks 2-5: one contig's polished bytes."""
+        if args.task == 2:
+            return kmer_count_contig(n, s, per_contig(sgs, n, len(s)), cfg,
+                                     device)
+        if args.task == 3:
+            return snp_phase_contig(n, s, per_contig(sgs, n, len(s)),
+                                    per_contig(lgs, n, len(s)), cfg,
+                                    device)
+        if args.task == 4:
+            return snp_valid_contig(n, s, per_contig(sgs, n, len(s)),
+                                    per_contig(lgs, n, len(s)), cfg)
+        return lgspolish_contig(n, s, per_contig(lgs, n, len(s)), cfg)
 
     done = set()
     if args.out != "stdout":
@@ -159,9 +179,7 @@ def main(argv=None):
             ((n, genome.fetch(n).seq) for n in todo), sgs, cfg,
             device=device)
     else:
-        results = ((n, kmer_count_contig(n, s, per_contig(sgs, n, len(s)),
-                                         cfg, device))
-                   for n, s in ((n, genome.fetch(n).seq) for n in todo))
+        results = ((n, engine(n, genome.fetch(n).seq)) for n in todo)
     for name, seq in results:
         if args.uppercase:
             seq = seq.upper()

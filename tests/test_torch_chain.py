@@ -186,6 +186,64 @@ def test_f32_tie_exactness_against_slow_chain(rate, on_grid):
         assert np.count_nonzero(got != want) <= n_dp // 100
 
 
+# (seed, rate, heavy cells of random_pileup(seed, 3000, 6, heavy, rolling)):
+# at 0.33, 0.47 and 0.7 the planes DP ties where rounding the product
+# tot1 * rate before the subtraction changes a choice (seeds 6, 11, 14, 21
+# with 20 heavy cells; seeds 6 and 7 at 0.7 with 1,500, where the
+# differing emissions are overflow entries'); 0.5 is the dyadic control
+OFF_GRID = ([(seed, rate, 20) for seed in (6, 11, 14, 21)
+             for rate in (0.33, 0.47, 0.5, 0.7)]
+            + [(6, 0.7, 1500), (7, 0.7, 1500)])
+
+
+@pytest.mark.parametrize("seed,rate,heavy", OFF_GRID)
+def test_planes_dp_matches_jax_off_grid(seed, rate, heavy):
+    """The planes DP through dispatch_chain_sparse (the CPU) against
+    tropical.run_chain_sparse: the choices byte-equal at off-grid rates,
+    where the emission must round once, as XLA's fused multiply-add does;
+    run_chain_sparse, the wrapper task 3 reaches, gives the same."""
+    n_dp = 3000
+    case = sim.random_pileup(seed, n_dp, 6, heavy_cells=heavy, rolling=True)
+    want = np.asarray(tr.run_chain_sparse(*case, n_dp, rate))
+    got = ch.dispatch_chain_sparse(*case, n_dp, rate, device="cpu")
+    assert np.array_equal(got.numpy()[:n_dp] & 7, want)
+    assert np.array_equal(ch.run_chain_sparse(*case, n_dp, rate,
+                                              device="cpu"), want)
+
+
+@pytest.mark.parametrize("rate", [0.33, 0.47, 0.5, 0.7])
+def test_dense_emission_bit_equal_to_jax(rate):
+    """The dense emission against tropical.emission under jax.jit, bit
+    for bit (here XLA rounds the product and the difference apart), and
+    the dense chain (run_chain_batch) against JAX's on regions that tie
+    at off-grid rates."""
+    import jax
+
+    rng = np.random.default_rng(0)
+    L = 2048
+    counts = (rng.integers(0, 3000, (L, K3))
+              * (rng.random((L, K3)) < 0.05)).astype(np.uint16)
+    refk = rng.integers(0, K3, L).astype(np.int32)
+    total = rng.integers(1, 60000, L).astype(np.int32)
+    want = np.asarray(jax.jit(tr.emission)(counts, refk, total, rate))
+    got = ch.emission(torch.from_numpy(counts.astype(np.int32))[None],
+                      torch.from_numpy(refk)[None],
+                      torch.from_numpy(total)[None], rate)[0].numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    for seed in (6, 11, 14):
+        uk, cn, rk, refkmer, tot = sim.random_pileup(seed, 1000, 6, 20,
+                                                     rolling=True)
+        dense = np.zeros((1000, K3), np.uint16)
+        dense.reshape(-1)[uk] = cn
+        rank = np.full((1000, K3), 0xFFFF, np.uint16)
+        rank.reshape(-1)[uk] = rk
+        probs = [(dense[i:i + 250], refkmer[i:i + 250], tot[i:i + 250],
+                  rank[i:i + 250]) for i in range(0, 1000, 250)]
+        for a, b in zip(ch.run_chain_batch(probs, rate, device="cpu"),
+                        tr.run_chain_batch(probs, rate)):
+            assert np.array_equal(a, np.asarray(b))
+
+
 def test_lookback_order_is_jax_scan_order():
     """chain_forward's look-back order (ch.lookback_scan, the kernel's
     units and recurrence in numpy) against jax.lax.associative_scan with

@@ -4,9 +4,11 @@ winners; task 1's chain DP: the forward scan and the traceback), the
 pinned-buffer launch paths, the dense chain batch (task 2's no-depth
 rescue), task 1's window route against its single launch, the mappers'
 banded DP and traceback (band_align, band_traceback) with a forced
-sub-batch split, engine calibration on the card, and worker2 / worker1
--t 1 / worker1 -t 2 / map_short_batch / the run.cfg pipeline --device
-cuda against --device cpu.
+sub-batch split, engine calibration on the card, the planes DP at
+off-grid rates and task 3's small launches, and worker2 / worker1 -t 1
+/ -t 2 / -t 3 / -t 4 / -t 5 / td_score_chain_contig / map_short_batch /
+the run.cfg pipeline (task 12, 5 and 1,2,3,4) --device cuda against
+--device cpu.
 
 Every test here is marked `gpu` and skips without a card; whether a card
 is there is decided in a fixture, at run time.  The file imports nothing
@@ -473,6 +475,90 @@ def test_worker1_task2_cuda_matches_cpu(tmp_path, cuda_device):
         (tmp_path / "cpu.fa").read_bytes()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.33, 0.47, 0.7])
+def test_planes_dp_off_grid_on_card_matches_cpu(cuda_device, rate):
+    """The planes DP at off-grid rates (task 3's rescue and
+    td_score_chain_contig run at 0.33): the card's result bytes equal the
+    CPU's, on pileups whose ties need the emission rounded once (the CPU
+    run equals the JAX package's there, tests/test_torch_chain.py)."""
+    for seed, heavy in ((11, 20), (21, 20), (6, 1500)):
+        case = sim.random_pileup(seed, 3000, 6, heavy, rolling=True)
+        buf, *shape = tch.pack_chain_planes(*case, 3000, rate)
+        host = torch.from_numpy(buf.view(np.int16))
+        got = tch.chain_correct_planes(host.to(cuda_device), *shape)
+        want = tch.chain_correct_planes(host, *shape)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [256, 512, 1024, 2048, 4096])
+def test_chain_kernels_small_launches_on_card(cuda_device, L):
+    """Task 3's launches: one row of a few hundred to a few thousand
+    cells (2 to 32 chunks, one or a few units of the forward scan's
+    look-back), kernels against their plain versions."""
+    _hold_chain(cuda_device, *_scan_inputs(L + 3, 1, L, 8))
+    _hold_chain(cuda_device, *_scan_inputs(L + 4, 1, L, 1, big=True))
+
+
+@pytest.fixture(scope="module")
+def diploid(tmp_path_factory):
+    """Two diploid contigs with short and long reads: genome.fa and both
+    sorted, indexed BAMs."""
+    from nextpolish_tpu_torch.io import bam as bamio
+
+    d = tmp_path_factory.mktemp("diploid")
+    c = sim.simulate_diploid_case(61, [30_000, 8_000], 40, 0.001, 3, 400,
+                                  long_depth=30)
+    fa, bam = sim.write_case(c, str(d))
+    lbam = str(d / "long.sort.bam")
+    hdr = bamio.BamHeader("", list(c.names), [len(x) for x in c.drafts])
+    bamio.write_bam(lbam, hdr, c.long_records, index=True)
+    return c, fa, bam, lbam
+
+
+@pytest.mark.gpu
+def test_worker1_tasks_3_4_5_cuda_matches_cpu(tmp_path, cuda_device,
+                                               diploid):
+    """worker1 -t 3, -t 4 on its output and -t 5 on the card write the
+    CPU runs' bytes; task 3 launches both chain kernels."""
+    from nextpolish_tpu_torch import worker1
+
+    _, fa, bam, lbam = diploid
+    runs = (("3", fa, ["-s", bam, "-l", lbam]),
+            ("4", str(tmp_path / "t3.cuda.fa"), ["-s", bam, "-l", lbam]),
+            ("5", fa, ["-l", lbam]))
+    for task, genome, reads in runs:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            path = tmp_path / f"t{task}.{dev}.fa"
+            before = _chain_launches()
+            assert worker1.main(["-g", genome, *reads, "-t", task, "-o",
+                                 str(path), "--device", dev]) == 0
+            if task == "3" and dev == "cuda":
+                after = _chain_launches()
+                assert after[0] > before[0] and after[1] > before[1]
+            out[dev] = path.read_bytes()
+        assert out["cuda"] == out["cpu"], task
+
+
+@pytest.mark.gpu
+def test_td_score_chain_cuda_matches_cpu(cuda_device, diploid):
+    """td_score_chain_contig (one planes launch over the contig at the lgs
+    rate) on the card gives the CPU's bytes."""
+    from nextpolish_tpu_torch.models import score_chain as tsc
+
+    c, _, _, lbam = diploid
+    batch = read_bam(lbam)
+    cfg = tsc.AlgoConfig()
+    before = _chain_launches()
+    got = tsc.td_score_chain_contig("ctg0", c.drafts[0], batch, cfg,
+                                    device=cuda_device)
+    assert _chain_launches() == (before[0] + 1, before[1] + 1)
+    assert got == tsc.td_score_chain_contig("ctg0", c.drafts[0], batch, cfg,
+                                            device="cpu")
+
+
 # ---------------------------------------------------------------------------
 # the aligner: band_align / band_traceback (align/extend.py,
 # csrc/band_align.cu), the mapper and the run.cfg pipeline
@@ -591,7 +677,7 @@ def test_map_short_batch_cuda_matches_cpu(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("project", ["task12", "task5"])
+@pytest.mark.parametrize("project", ["task12", "task5", "task1234"])
 def test_run_cfg_cuda_matches_cpu(tmp_path, cuda_device, project):
     """python -m nextpolish_tpu_torch run.cfg --device cuda writes the
     --device cpu run's genome.nextpolish.fasta and .stat."""
@@ -600,6 +686,10 @@ def test_run_cfg_cuda_matches_cpu(tmp_path, cuda_device, project):
     if project == "task12":
         case = sim.simulate_short_case(53, [15000, 4000], 30)
         kw = dict(task="12", sgs=case.records)
+    elif project == "task1234":
+        case = sim.simulate_diploid_case(57, [15000, 4000], 40, 0.001, 2,
+                                         400, long_depth=30)
+        kw = dict(task="1,2,3,4", sgs=case.records, lgs=case.long_records)
     else:
         case = sim.simulate_case(55, 2, [9000, 5000], 15,
                                  read_len=(1500, 4000))

@@ -1,9 +1,9 @@
 """The port stands alone: every module of nextpolish_tpu_torch imports
 (kmer_count, parallel/shard, the aligner, the pipeline and calib among
 them), and the CPU slices (worker2, worker1 -t 1, then -t 2 on its output,
-and the run.cfg pipeline through `python -m nextpolish_tpu_torch`) run end
-to end, with `jax` and `nextpolish_tpu` made unimportable in the
-process."""
+worker1 -t 3, -t 4 on its output and -t 5, td_score_chain_contig, and the
+run.cfg pipeline through `python -m nextpolish_tpu_torch`) run end to end,
+with `jax` and `nextpolish_tpu` made unimportable in the process."""
 import pathlib
 import re
 import subprocess
@@ -28,6 +28,9 @@ from nextpolish_tpu_torch.__main__ import main as run_cfg
 from nextpolish_tpu_torch.align.extend import band_align_core, band_traceback
 from nextpolish_tpu_torch.models.cns.level_scan import level_chain, level_winners
 from nextpolish_tpu_torch.ops.chain import forward_states, traceback_batch
+from nextpolish_tpu_torch.io import bam as bamio
+from nextpolish_tpu_torch.models.score_chain import (AlgoConfig,
+                                                     td_score_chain_contig)
 os.environ["NPT_CNS_ENGINE"] = "device"
 with tempfile.TemporaryDirectory() as d:
     case = sim.simulate_case(4, 1, 3000, 10, read_len=(1000, 2500))
@@ -50,6 +53,26 @@ with tempfile.TemporaryDirectory() as d:
                          "--device", "cpu"]) == 0
     lines2 = open(out2, "rb").read().split(b"\n")
     assert [len(x) for x in lines2[1::2]] == [len(x) for x in lines[1::2]]
+    # tasks 3, 4 and legacy 5 on a diploid contig with long reads, and
+    # the long-read chain variant
+    dip = sim.simulate_diploid_case(6, [4000], 30, 0.002, 1, 400,
+                                    long_depth=20)
+    fa, bam = sim.write_case(dip, os.path.join(d, "dip"))
+    lbam = os.path.join(d, "dip", "long.bam")
+    hdr = bamio.BamHeader("", dip.names, [len(x) for x in dip.drafts])
+    bamio.write_bam(lbam, hdr, dip.long_records, index=True)
+    for task, genome, reads in (
+            ("3", fa, ["-s", bam, "-l", lbam]),
+            ("4", os.path.join(d, "t3.fa"), ["-s", bam, "-l", lbam]),
+            ("5", fa, ["-l", lbam])):
+        out_t = os.path.join(d, f"t{task}.fa")
+        assert worker1.main(["-g", genome, *reads, "-t", task, "-o",
+                             out_t, "--device", "cpu"]) == 0
+        rec = open(out_t, "rb").read().split(b"\n")
+        assert rec[0].startswith(b">ctg0 ") and len(rec[1]) > 3900
+    td = td_score_chain_contig("ctg0", dip.drafts[0], bamio.read_bam(lbam),
+                               AlgoConfig(), device="cpu")
+    assert len(td) > 3900
     # the run.cfg pipeline, task 12, on the built-in mapper
     proj = os.path.join(d, "proj")
     sim.write_project(proj, case.names, case.drafts, "12", sgs=case.records)

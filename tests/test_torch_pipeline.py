@@ -1,10 +1,11 @@
 """The port's run.cfg pipeline (nextpolish_tpu_torch.pipeline, --device
 cpu) against the JAX package's: genome.nextpolish.fasta and its .stat
 byte-equal for task 12 on tests/test_pipeline.py's project (6 kb, 40x
-PE150) and for task 5 on a small long-read project (two contigs, about
-15x ONT-like reads from nextpolish_tpu_torch.sim); resume writes .v1 as
-in JAX.  Also the port's own refusals (tasks 3/4, several processes) and
-its repaired spill estimate on a truncated .gz."""
+PE150), for task 5 on a small long-read project (two contigs, about
+15x ONT-like reads from nextpolish_tpu_torch.sim) and for task 1,2,3,4
+on a diploid contig with long reads; resume writes .v1 as in JAX.  Also
+the port's own refusal (several processes) and its repaired spill
+estimate on a truncated .gz."""
 import gzip
 import os
 
@@ -26,6 +27,16 @@ def _long_project(d):
                       lgs=case.records)
 
 
+def _diploid_project(d):
+    """task = 1,2,3,4 on a diploid 8 kb contig (a het SNP a kb, 40x PE150
+    from both haplotypes, two 400 bp stretches without read starts) with
+    30x long reads: tasks 3 and 4 map both."""
+    case = sim.simulate_diploid_case(9, [8000], 40, 0.001, 2, 400,
+                                     long_depth=30)
+    sim.write_project(str(d), case.names, case.drafts, "1,2,3,4",
+                      sgs=case.records, lgs=case.long_records)
+
+
 def _both(d):
     """(JAX assembly, port assembly) of the project in d: JAX into
     ./work, the port (through its CLI, --device cpu) into ./work_t."""
@@ -37,12 +48,15 @@ def _both(d):
     return want, got
 
 
-@pytest.mark.parametrize("project", ["task12_pe150", "task5_ont"])
+@pytest.mark.parametrize("project", ["task12_pe150", "task5_ont",
+                                     "task1234_diploid"])
 def test_pipeline_matches_jax(tmp_path, project):
     if project == "task12_pe150":
         _make_project(tmp_path, np.random.default_rng(21))
-    else:
+    elif project == "task5_ont":
         _long_project(tmp_path)
+    else:
+        _diploid_project(tmp_path)
     want, got = _both(tmp_path)
     assert open(got, "rb").read() == open(want, "rb").read()
     assert open(got + ".stat").read() == open(want + ".stat").read()
@@ -53,17 +67,14 @@ def test_pipeline_matches_jax(tmp_path, project):
     assert open(again, "rb").read() == open(got, "rb").read()
 
 
-def test_pipeline_refuses_tasks_3_4_and_several_processes(tmp_path,
-                                                         monkeypatch):
+def test_pipeline_refuses_several_processes(tmp_path, monkeypatch):
+    """Several processes (ROADMAP A6.2) raise before the first round."""
     _make_project(tmp_path, np.random.default_rng(3), L=2000, depth=5)
     cfg = t_load(str(tmp_path / "run.cfg"))
-    cfg.task = [1, 2, 3]
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tpipe.Pipeline(cfg, device="cpu").run()
-    assert not os.path.exists(cfg.stage_dir(1, 1))
     monkeypatch.setenv("NPT_NUM_PROCS", "2")
     with pytest.raises(RuntimeError, match="A6.2"):
         t_main([str(tmp_path / "run.cfg"), "--device", "cpu"])
+    assert not os.path.exists(cfg.stage_dir(1, 1))
 
 
 def test_spill_estimate_survives_a_truncated_gz(tmp_path):

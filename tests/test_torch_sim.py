@@ -160,3 +160,39 @@ def test_write_bam_fields_at_their_limits_match(tmp_path):
     pb.write_bam(got, pb.BamHeader("", ["c"], [1 << 20]), recs)
     jbam.write_bam(want, jbam.BamHeader("", ["c"], [1 << 20]), recs)
     assert filecmp.cmp(got, want, shallow=False)
+
+
+def test_simulate_diploid_case():
+    """simulate_diploid_case: hap2 is hap1 with about het_rate
+    substitutions; no read starts inside a hole (both mates of a fragment
+    with one inside are dropped), so reads from both haplotypes leave
+    each hole's far end uncovered; the draft is hap1 with substitutions;
+    long reads come from both haplotypes; the same seed gives the same
+    case."""
+    c = sim.simulate_diploid_case(3, [20_000, 8_000], 40, 0.002, 3, 400,
+                                  long_depth=20)
+    for tid, (h1, h2, draft, holes) in enumerate(zip(
+            c.truths, c.hap2s, c.drafts, c.holes)):
+        a1, a2 = (np.frombuffer(x, np.uint8) for x in (h1, h2))
+        assert 0 < np.count_nonzero(a1 != a2) < 0.004 * len(a1)
+        assert 0 < np.count_nonzero(np.frombuffer(draft, np.uint8) != a1)
+        recs = [r for r in c.records if r["tid"] == tid]
+        cover = np.zeros(len(h1) + 1, np.int64)
+        for r in recs:
+            cover[r["pos"]] += 1
+            cover[r["pos"] + 150] -= 1
+        cover = np.cumsum(cover)
+        assert len(holes) == 3
+        for h0, h1_ in holes:
+            assert not any(h0 <= r["pos"] < h1_ for r in recs)
+            assert cover[h0 + 200:h1_].max() == 0
+        names = {r["name"][0] for r in recs}
+        assert names == {"a", "b"}
+        assert sum(r["flag"] & 0x40 != 0 for r in recs) * 2 == len(recs)
+        longs = {r["name"].split("_")[1] for r in c.long_records
+                 if r["tid"] == tid}
+        assert longs == {"1", "2"}
+    again = sim.simulate_diploid_case(3, [20_000, 8_000], 40, 0.002, 3, 400,
+                                      long_depth=20)
+    assert again.drafts == c.drafts and again.hap2s == c.hap2s
+    assert [r["pos"] for r in again.records] == [r["pos"] for r in c.records]

@@ -113,23 +113,68 @@ def test_worker1_python_pileup_matches_jax(tmp_path, monkeypatch):
     assert "task1.native_walks" not in trace.snapshot("task1")
 
 
-def test_worker1_refuses_unported_tasks_and_missing_card(tmp_path):
-    """-t 3 and -t 5 exit non-zero naming ROADMAP A4; --device cuda (the
-    default) without a card raises instead of running on the CPU."""
+def test_worker1_refuses_a_missing_card(tmp_path):
+    """--device cuda (the default) without a card raises instead of
+    running on the CPU, for every task."""
     c = sim.simulate_short_case(2, [2000], 10)
     fa, bam = _write(tmp_path, c.names, c.drafts, c.records)
-    for task in ("3", "5"):
-        with pytest.raises(SystemExit) as e:
-            torch_worker1.main(["-g", fa, "-s", bam, "-t", task, "-o",
-                                str(tmp_path / "x.fa"), "--device", "cpu"])
-        assert e.value.code != 0
     if torch.cuda.is_available():
         return  # the cuda run is the gpu tests' job
-    for task in ("1", "2"):
+    for task in ("1", "2", "3", "4", "5"):
         with pytest.raises(RuntimeError, match="cuda"):
             torch_worker1.main(["-g", fa, "-s", bam, "-t", task,
                                 "-o", str(tmp_path / "y.fa")])
         assert not (tmp_path / "y.fa").exists()
+
+
+@pytest.fixture(scope="module")
+def diploid(tmp_path_factory):
+    """Two diploid contigs (12 kb and 5 kb; a het SNP a kb, 40x PE150
+    from both haplotypes, two 400 bp stretches without read starts
+    each) with 30x long reads: genome.fa, the short- and the long-read
+    BAMs, and JAX worker1 -t 3's output."""
+    d = tmp_path_factory.mktemp("diploid")
+    c = sim.simulate_diploid_case(8, [12_000, 5_000], 40, 0.001, 2, 400,
+                                  long_depth=30)
+    fa, bam = _write(d, c.names, c.drafts, c.records)
+    lbam = d / "long.sort.bam"
+    hdr = jax_bam.BamHeader("", list(c.names), [len(x) for x in c.drafts])
+    jax_bam.write_bam(str(lbam), hdr, c.long_records, index=True)
+    t3 = d / "t3.fa"
+    assert jax_worker1.main(["-g", fa, "-s", bam, "-l", str(lbam), "-t",
+                             "3", "-o", str(t3)]) == 0
+    return fa, bam, str(lbam), str(t3)
+
+
+@pytest.mark.parametrize("run", ["3", "4", "5", "5_sgs"])
+def test_worker1_tasks_3_4_5_match_jax(tmp_path, diploid, run,
+                                       monkeypatch):
+    """worker1 -t 3 (-s, -l), -t 4 on -t 3's output, -t 5 with -l and
+    with -s in its place: the port's FASTA (--device cpu) byte-equal to
+    the JAX worker1's; task 3 reaches the low-depth chain rescue."""
+    from nextpolish_tpu_torch.models import snp_phase as t_phase
+
+    fa, bam, lbam, t3 = diploid
+    task = run[0]
+    args = {"3": ["-g", fa, "-s", bam, "-l", lbam],
+            "4": ["-g", t3, "-s", bam, "-l", lbam],
+            "5": ["-g", fa, "-l", lbam],
+            "5_sgs": ["-g", fa, "-s", lbam]}[run] + ["-t", task]
+    calls = []
+    run_region = t_phase.run_chain_region
+    monkeypatch.setattr(t_phase, "run_chain_region",
+                        lambda *a, **k: calls.append(1) or run_region(
+                            *a, **k))
+    out_j, out_t = tmp_path / "jax.fa", tmp_path / "torch.fa"
+    assert jax_worker1.main(args + ["-o", str(out_j)]) == 0
+    assert torch_worker1.main(args + ["-o", str(out_t), "--device",
+                                      "cpu"]) == 0
+    got = out_t.read_bytes()
+    assert got == out_j.read_bytes()
+    assert len(got.split(b"\n")[1::2]) == 2
+    if task == "3":
+        assert calls
+        assert any(c >= 97 for c in got.split(b"\n")[1])
 
 
 def test_worker1_refuses_a_launch_over_its_caps(tmp_path, monkeypatch):
