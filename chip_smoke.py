@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (nextpolish_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 1] [--contigs 4] [--phases 1,2,3,4,5,6,7,8]
+    python3 chip_smoke.py [--seed 1] [--contigs 4] [--phases 1,2,...,9]
 
 Phases (any failed check exits non-zero; nothing is caught):
   1. build   the engine-2 level-scan kernels (nvcc, sm_90a: the chain and
@@ -135,11 +135,38 @@ Phases (any failed check exits non-zero; nothing is caught):
              output must hold lowercase bases (task 4's input).  Printed:
              wall and bases/s, kernel and chain launches, cells and
              (B, L) per run, the het sites task 3 changed, lowercase
-             before and after task 4, differences to hap1 and hap2.
+             before and after task 4, differences to hap1 and hap2;
+  9. main    several processes: one run.cfg (task = 5,1, engine 2 on the
+             card through NPT_CNS_ENGINE=device) on three contigs cut from
+             phase 7(b)'s chromosome (210,000, 100,000 and 90,000 bp, so
+             blc_genome gives rank 0 the first and rank 1 the others),
+             phase 5's PE150 reads of them and 30x long reads (phase 7(b)'s
+             depths), run as one process in this one (`python -m
+             nextpolish_tpu_torch run.cfg --device cuda`, as 7(b) runs it)
+             and as two ranks on this card (`python -m
+             nextpolish_tpu_torch.launch --nprocs 2 run.cfg --device
+             cuda`): the final FASTA and .stat byte-equal, both ranks'
+             part files of both rounds non-empty, each rank's log naming
+             this card, each rank's launches of level_chain, chain_forward
+             and band_align above 0; task 1's chain launches of the ranks
+             add up to the one process's, each rank's aligner launches
+             equal the one process's (every rank maps every read, as the
+             JAX package's ranks do) and the ranks' engine-2 windows add
+             up to the one process's (a launch groups the windows in
+             flight, so launches need not).  Every launch of the one
+             process, recorded on the way, is held against its plain
+             version on the card: each engine-2 window's first 16,384
+             levels (both kernels on that prefix, and the launch's
+             winners over it), every chain-kernel launch (f bit for bit,
+             the choices byte for byte) and every aligner launch.
+             Printed: both walls, every stage wall of each run, the
+             launches of each rank and the differences to the truth.
 
 Cuts, all of scale, none of shape: phase 3's number of contigs
-(--contigs, 4 by default, 8 before the aligner's phase); phase 3's plain
-check of a whole window became its first 100,000 levels; phase 7(b)'s
+(--contigs, 4 by default: 8 before the aligner's phase); phase 3's
+plain check of a whole window became its first 100,000 levels, phase
+9's of each window its first 16,384 (the plain chain takes about 0.2 ms
+a level on the H100); phase 7(b)'s
 chromosome is cut to 1,000,000 bp (the host half of the mapper, about
 0.2 ms a short read, would need about 500 s for the whole genome's two
 short-read rounds).  Not a cut but time given back: phase 5's simulation
@@ -153,12 +180,12 @@ contig: a contig past the real cap needs about 10 M reads, which this
 script's time limit cannot simulate); phase 8's heterozygous chromosome
 is cut to 600,000 bp (1,000,000 took the phase 193.6 s, past the 150 s
 it may take; its het rate, holes and depths are not cut).
---phases runs a subset (the build always runs; 6 and 7 need 5).
+--phases runs a subset (the build always runs; 6, 7 and 9 need 5).
 
 The last three lines are the kernels' JSON record (the level scan's two
 kernels, one port of the TPU kernel; task 1's two chain kernels, whose
 launches include phase 8's runs; the aligner's two kernels; with their
-launches on each path; each entry's
+launches on each path, phase 9's process and ranks among them; each entry's
 `timer` says what its `ms` is: CUDA events around the wrapper calls, or,
 for the aligner's kernels, the device time), the card's name and power
 limit, and
@@ -170,6 +197,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import io
 import json
 import os
 import re
@@ -988,6 +1016,12 @@ def task1_main_path(tmp, dev, args, ctx):
         # and the plasmids, with the fragments that lie inside them
         ctx["pipe_sgs"] = [r for r in case.records if r["tid"] != 0 or max(
             r["pos"], r["mpos"]) + 200 <= PIPE_CHROM_BASES]
+    if 9 in args.phase_set:
+        # phase 9's contigs: pieces of the chromosome, with the fragments
+        # that lie inside one of them
+        ctx["multi_sgs"] = [r for r in case.records if r["tid"] == 0 and any(
+            a <= min(r["pos"], r["mpos"]) and max(r["pos"], r["mpos"]) + 200
+            <= b for a, b in MULTI_PIECES)]
     case.records = None  # the BAM holds them now
     log(f"task1: simulated {len(TASK1_CONTIGS)} contigs, "
         f"{sum(TASK1_CONTIGS)} bp, {n_reads} PE150 reads at {TASK1_DEPTH}x "
@@ -1662,9 +1696,7 @@ def pipeline_main_path(tmp, dev, args, ctx):
             setattr(tpipe.Pipeline, k, fn)
         tpipe.StageRunner.stage = stage_fn
     peak = torch.cuda.max_memory_allocated(dev)
-    launches = {**band_launches(), **chain_launches(),
-                "level_chain": ls.level_chain.launches,
-                "level_winners": ls.level_winners.launches}
+    launches = cli.kernel_launches()
     check(rc == 0, f"python -m nextpolish_tpu_torch returned {rc}")
     pick = json.load(open(os.environ["NPT_CNS_CALIB"]))
     pick = next(v for k, v in pick.items() if k.endswith("/ont"))
@@ -1930,6 +1962,270 @@ def snp_main_path(tmp, dev, args):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 9: several processes (launch.py, parallel/hosts.py), two ranks
+# ---------------------------------------------------------------------------
+
+# three contigs cut from phase 7(b)'s chromosome (its first 400,000 bp),
+# sized so that blc_genome gives rank 0 the first and rank 1 the others
+MULTI_PIECES = ((0, 210_000), (210_000, 310_000), (310_000, 400_000))
+HOLD_LEVELS = 16_384  # phase 9's plain check of each engine-2 window
+TIME_LINE = re.compile(r"TIME (\S+) wall=([\d.]+)s")
+
+
+class capture_levels:
+    """While active, the batcher's engine-2 launches are recorded: each
+    group's windows, read type and coverage coefficient, and its Pending,
+    whose host results stay alive with the record."""
+
+    def __init__(self):
+        from nextpolish_tpu_torch.models.cns import batcher
+
+        self.mod = batcher
+        self.orig = batcher.dispatch_group
+        self.groups = []
+
+    def __enter__(self):
+        def rec(dws, read_type, device=None, cov_coef=None, sc_tail=False):
+            pend = self.orig(dws, read_type, device, cov_coef, sc_tail)
+            self.groups.append((list(dws), read_type, cov_coef, pend))
+            return pend
+
+        self.mod.dispatch_group = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.dispatch_group = self.orig
+
+
+def hold_levels(cap, dev, label):
+    """Each recorded launch's windows, cut to their first HOLD_LEVELS
+    levels (a prefix of the level scan is the scan of the prefix), through
+    the plain versions on the card: equal to both kernels on the prefix
+    alone and to the recorded launch's winners over it.  Returns the
+    levels held."""
+    import torch
+
+    from nextpolish_tpu_torch.models.cns import level_scan as ls
+    from nextpolish_tpu_torch.models.cns.device_dp import (
+        READ_TYPE_ID,
+        pack_batch,
+    )
+    from nextpolish_tpu_torch.models.cns.dp import COV_COEF
+
+    held = 0
+    for g, (dws, rt, cov, pend) in enumerate(cap.groups):
+        rt_id = READ_TYPE_ID[rt]
+        c = COV_COEF[rt] if cov is None else cov
+        pend.done.synchronize()
+        for i, dw in enumerate(dws):
+            cut = truncate(dw, HOLD_LEVELS)
+            one = pack_batch([cut]).to(dev)  # every level's scores kept
+            ki = ls.level_chain(one, rt_id, c)
+            kb, ks = ls.level_winners(one, ki, rt_id)
+            pi = ls.level_chain_plain(one, rt_id, c)
+            pb, ps = ls.level_winners_plain(one, pi, rt_id)
+            lb, nl = int(pend.win[i, 0]), cut.n_levels
+            launched = pend.best[lb:lb + nl].to(dev)
+            torch.cuda.synchronize(dev)
+            win_pairs = [(kb, pb), (ks, ps), (launched, pb)]
+            e_chain, e_win = max_err([(ki, pi)]), max_err(win_pairs)
+            ERR["level_chain"] = max(ERR["level_chain"], e_chain)
+            ERR["level_winners"] = max(ERR["level_winners"], e_win)
+            check(e_chain == 0 and torch.equal(ki, pi),
+                  f"level_chain kernel != plain ({label}, launch {g}, "
+                  f"window {i})")
+            check(e_win == 0 and all(torch.equal(a, b)
+                                     for a, b in win_pairs),
+                  f"level_winners kernel != plain ({label}, launch {g}, "
+                  f"window {i})")
+            held += nl
+    return held
+
+
+def run_logged(cmd, env, cwd, label):
+    """One CLI run as a child process: (wall, its log)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *cmd], env=env, cwd=cwd,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"phase 9 {label} returned {r.returncode}: "
+          + r.stderr[-3000:])
+    return wall, r.stderr
+
+
+def rank_records(text: str, nproc: int, card: str) -> list:
+    """Each rank's (launches, engine-2 windows) from its last log line;
+    the line must name this card."""
+    from nextpolish_tpu_torch.__main__ import rank_lines
+
+    got = rank_lines(text)
+    check(sorted(got) == list(range(nproc)),
+          f"rank lines {sorted(got)} of {nproc} processes")
+    for r, (n, dev, name, _, _) in got.items():
+        check(n == nproc, f"rank {r} logged {n} processes, not {nproc}")
+        check(dev.startswith("cuda") and name == card,
+              f"rank {r} ran on {dev} ({name}), not on {card}")
+    return [got[r][3:] for r in range(nproc)]
+
+
+def multiproc_main_path(tmp, dev, args, ctx):
+    """Phase 9: the same run.cfg (task = 5,1, engine 2 on the card) as one
+    process, in this one with every launch held against its plain
+    version, and as two ranks through the launcher, both --device
+    cuda."""
+    import logging
+
+    import torch
+
+    from nextpolish_tpu_torch import __main__ as cli
+    from nextpolish_tpu_torch import sim
+    from nextpolish_tpu_torch.align import extend as text
+    from nextpolish_tpu_torch.kit import plog
+    from nextpolish_tpu_torch.models.cns import level_scan as ls
+    from nextpolish_tpu_torch.parallel.hosts import blc_genome
+    from nextpolish_tpu_torch.runtime import trace
+
+    case = ctx["case"]
+    names = [f"{case.names[0]}_{a}" for a, _ in MULTI_PIECES]
+    truths = [case.truths[0][a:b] for a, b in MULTI_PIECES]
+    drafts = [case.drafts[0][a:b] for a, b in MULTI_PIECES]
+    t0 = time.perf_counter()
+    lgs = sim.long_reads(args.seed + 9, truths, PIPE_LONG_DEPTH)
+    proj = os.path.join(tmp, "multiproc")
+    sgs = ctx.pop("multi_sgs")
+    cfg = sim.write_project(proj, names, drafts, "5,1", sgs=sgs, lgs=lgs)
+    blocks = blc_genome(dict(zip(names, map(len, drafts))), 2)
+    check(sorted(set(blocks.values())) == [0, 1],
+          f"blc_genome gives the ranks {blocks}")
+    log(f"multiproc: {sum(map(len, drafts))} bp ({', '.join(names)}: "
+        f"pieces of {case.names[0]}), {len(sgs)} PE150 reads of phase 5 "
+        f"and {len(lgs)} long reads ({PIPE_LONG_DEPTH}x), task = 5,1, "
+        f"blocks {blocks} ({time.perf_counter() - t0:.1f} s)")
+    del sgs, lgs
+    card = torch.cuda.get_device_name(dev)
+    work = os.path.join(proj, "work")
+
+    # one process, here, as phase 7(b) runs it; its log read as the ranks'
+    zero_chain_launches()
+    for fn in (ls.level_chain, ls.level_winners, text.band_align_core,
+               text.band_traceback):
+        fn.launches = 0
+    trace.reset()
+    buf = io.StringIO()
+    handler = logging.StreamHandler(buf)
+    handler.setFormatter(logging.Formatter("%(message)s"))
+    plog().addHandler(handler)
+    os.environ["NPT_CNS_ENGINE"] = "device"
+    try:
+        with capture_levels() as cap_lv, capture_band() as cap, \
+                capture_scans() as cap_scans:
+            t0 = time.perf_counter()
+            rc = cli.main([cfg, "--device", "cuda"])
+            torch.cuda.synchronize(dev)
+            wall1 = time.perf_counter() - t0
+    finally:
+        os.environ.pop("NPT_CNS_ENGINE")
+        plog().removeHandler(handler)
+    check(rc == 0, f"phase 9 one process returned {rc}")
+    text1 = buf.getvalue()
+    (one, win1), = rank_records(text1, 1, card)
+    check(one == cli.kernel_launches(), "the rank line's launches differ "
+          "from the counters")
+    check(len(cap_lv.groups) == one["level_chain"]
+          and sum(len(g[0]) for g in cap_lv.groups) == win1,
+          "engine-2 launches and recorded groups differ")
+    check(len(cap_scans.fwd) == one["chain_forward"]
+          and len(cap_scans.tb) == one["chain_traceback"],
+          "chain launches and recorded scans differ")
+    check(len(cap.calls) == one["band_align"],
+          "aligner launches and recorded calls differ")
+    os.rename(work, work + ".one")
+    torch.cuda.empty_cache()  # the ranks' memory, not this process's cache
+
+    # two ranks through the launcher, on this card
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("NPT_COORDINATOR", "NPT_NUM_PROCS",
+                                "NPT_PROC_ID", "SLURM_"))}
+    env.update(NPT_CNS_ENGINE="device", PYTHONPATH=os.pathsep.join(
+        [HERE, os.environ.get("PYTHONPATH", "")]))
+    wall2, text2 = run_logged(
+        ["-m", "nextpolish_tpu_torch.launch", "--nprocs", "2", cfg,
+         "--device", "cuda"], env, proj, "two_ranks")
+    ranks = rank_records(text2, 2, card)
+
+    for f in ("genome.nextpolish.fasta", "genome.nextpolish.fasta.stat"):
+        a = open(os.path.join(work + ".one", f), "rb").read()
+        b = open(os.path.join(work, f), "rb").read()
+        check(len(a) > 0 and a == b,
+              f"{f} differs between one process and two ranks")
+    for step in ("01.lgs_polish", "02.score_chain"):
+        for r in range(2):
+            part = os.path.join(work, step,
+                                f"genome.nextpolish.part.fasta.rank{r}")
+            check(os.path.exists(part) and os.path.getsize(part) > 0,
+                  f"rank {r} wrote no {step} part")
+    for r, (n, _) in enumerate(ranks):
+        for k in ("level_chain", "chain_forward", "band_align"):
+            check(n[k] > 0, f"rank {r} launched {k} no time")
+    # task 1 launches once a contig, so the ranks' launches add up to the
+    # one process's; every rank maps every read (as the JAX package's
+    # ranks do), so each rank's aligner launches equal the one process's;
+    # engine 2's launches group the windows in flight, so its windows add
+    # up, not its launches
+    for k in ("chain_forward", "chain_traceback"):
+        check(sum(n[k] for n, _ in ranks) == one[k],
+              f"{k}: ranks {[n[k] for n, _ in ranks]}, one process {one[k]}")
+    for k in ("band_align", "band_traceback"):
+        check(all(n[k] == one[k] for n, _ in ranks),
+              f"{k}: ranks {[n[k] for n, _ in ranks]}, one process {one[k]}")
+    check(sum(w for _, w in ranks) == win1,
+          f"engine-2 windows: ranks {[w for _, w in ranks]}, one process "
+          f"{win1}")
+
+    asm = read_fasta(os.path.join(work, "genome.nextpolish.fasta"))
+    diffs = ", ".join(f"{n} {differences(t, asm[n])}"
+                      for n, t in zip(names, truths))
+    log(f"multiproc: one process {wall1:.2f} s (in this process), two "
+        f"ranks {wall2:.2f} s (launcher to exit, both ranks on one card); "
+        f"FASTA and .stat byte-equal; differences to the truth after task "
+        f"1: {diffs}")
+    for label, txt in (("one process", text1), ("two ranks", text2)):
+        stages = ", ".join(f"{m[1]} {float(m[2]):.2f} s"
+                           for m in TIME_LINE.finditer(txt))
+        log(f"multiproc: {label} stage walls: {stages}")
+    log(f"multiproc: launches, one process {one} ({win1} engine-2 "
+        f"windows); " + "; ".join(f"rank {r} {n} ({w} windows)"
+                                  for r, (n, w) in enumerate(ranks)))
+
+    # the one process's launches again through the plain versions
+    t0 = time.perf_counter()
+    held = hold_levels(cap_lv, dev, "multiproc")
+    log(f"multiproc: {one['level_chain']} engine-2 launches ("
+        f"{[len(g[0]) for g in cap_lv.groups]} windows), each window's "
+        f"first {HOLD_LEVELS} levels ({held} in all) equal to the plain "
+        f"versions, both kernels and the launch's winners "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del cap_lv
+    t0 = time.perf_counter()
+    hold_scans(cap_scans, dev, "multiproc")
+    log(f"multiproc: {len(cap_scans.fwd)} chain_forward and "
+        f"{len(cap_scans.tb)} chain_traceback launches ("
+        f"{[tuple(A.shape) for A, _ in cap_scans.fwd]}) equal to their "
+        f"plain versions ({time.perf_counter() - t0:.1f} s)")
+    del cap_scans
+    t0 = time.perf_counter()
+    n_done, n_all, n_shapes = replay_band(cap, dev)
+    check(n_done == n_all, f"only {n_done} of {n_all} aligner launches "
+          "re-run")
+    log(f"multiproc: {n_done} of {n_all} aligner launches ({n_shapes} "
+        f"(mode, R, B) shapes) re-run through the plain versions on the "
+        f"card: equal ({time.perf_counter() - t0:.1f} s)")
+    return {"phase 9: one process": one,
+            **{f"phase 9: rank {r} of 2": n for r, (n, _) in
+               enumerate(ranks)}}
+
+
 def band_records(launches, timed_shapes, checks):
     """The aligner kernels' entries of the kernels line: the times of the
     main path's short-read launch, the other shapes beside them."""
@@ -1966,13 +2262,13 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--contigs", type=int, default=4)
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8",
-                   help="phases to run (the build always runs; 6 and 7 "
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+                   help="phases to run (the build always runs; 6, 7 and 9 "
                         "need 5)")
     args = p.parse_args(argv)
     phases = args.phase_set = {int(x) for x in args.phases.split(",")}
-    if phases & {6, 7} and 5 not in phases:
-        fail("phases 6 and 7 run on phase 5's simulation: add 5 to "
+    if phases & {6, 7, 9} and 5 not in phases:
+        fail("phases 6, 7 and 9 run on phase 5's simulation: add 5 to "
              "--phases")
 
     # the port must run with JAX and the JAX package out of reach
@@ -2056,6 +2352,17 @@ def main(argv=None) -> int:
                     by[f"phase 8: {path}"] = n[k]
                     rec["launches"] += n[k]
             log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+        if 9 in phases:
+            t0 = time.perf_counter()
+            by_path = multiproc_main_path(tmp, dev, args, ctx)
+            for rec in recs:
+                k = rec["name"]
+                by = rec.setdefault("launches_by_path",
+                                    {"main": rec["launches"]})
+                for path, n in by_path.items():
+                    by[path] = n[k]
+                    rec["launches"] += n[k]
+            log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -30,7 +30,7 @@ lib/scorechain.c:17-29) on it at filter level 1 and the lgs rate; and
 rescue, models/snp_phase.py).
 
 Not ported here: score_chain_pipeline_multichip, the several-shard route
-and the round-robin over several devices (ROADMAP A6.2).
+and the round-robin over several devices (ROADMAP A6.2b).
 """
 from __future__ import annotations
 

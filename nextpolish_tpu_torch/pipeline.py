@@ -1,5 +1,5 @@
 """The polishing pipeline driver (role of source/nextPolish:25-530): port
-of nextpolish_tpu/pipeline.py for one process on one device.
+of nextpolish_tpu/pipeline.py.
 
 Per task round: snapshot input genome -> (re)index -> map reads with the
 built-in mapper -> polish every contig with the task's engine -> emit a
@@ -24,7 +24,15 @@ Where the port differs from the JAX package's driver:
   * task 1 runs score_chain_pipeline, which on one device is what the JAX
     router does; a contig past the single-launch cap takes the window
     route inside it;
-  * one process (parallel/hosts.py): several processes are ROADMAP A6.2;
+  * in a run of several processes (parallel/hosts.py) each rank polishes
+    its block of contigs on its own device, contigs of SHARD_MIN_LEN
+    (30 Mb) and more too: the JAX router would build a reads mesh over
+    every process's devices for those, but the window route is
+    byte-equal to the sharded one (tests/test_shard_merge.py), so the
+    bytes are the same;
+  * with several processes, rank 0 alone rotates the workdir (rewrite)
+    and every rank spills its BAM parts into a directory of its own
+    (ROADMAP C8);
   * a truncated or corrupt .gz read file no longer escapes the spill
     estimate (EOFError, zlib.error): its expansion falls back to 3.0.
 """
@@ -213,7 +221,13 @@ class Pipeline:
         return part
 
     def _spill_dir(self, genome_path: str, tag: str) -> str:
+        """The spilled BAM parts' directory: one a rank, since every rank
+        maps every read (the JAX package shares one: C8)."""
+        from .parallel.hosts import process_count, process_index
+
         d = os.path.join(self.cfg.workdir, f"spill.{tag}")
+        if process_count() > 1:
+            d += f".rank{process_index()}"
         os.makedirs(d, exist_ok=True)
         return d
 
@@ -395,37 +409,62 @@ class Pipeline:
 
     # ------------------------------------------------------------------
     def run(self) -> str:
+        from .parallel.hosts import barrier, process_count, process_index
+
         cfg = self.cfg
-        if cfg.rewrite:
+        nproc = process_count()
+        rank = process_index()
+        # one rank rotates the shared workdir, and the others wait for it
+        # (the JAX package lets every rank rotate it: C8)
+        if cfg.rewrite and rank == 0:
             moved = backup_dir(cfg.workdir)
             if moved:
                 log.warning("workdir moved to %s", moved)
+        barrier("rewrite")
         os.makedirs(cfg.workdir, exist_ok=True)
         runner = StageRunner(cfg.workdir, cfg.rerun)
 
-        # one process (parallel/hosts.py raises if several are asked
-        # for): no rank part files, no barriers, no gather across ranks
-        from .parallel.hosts import process_count
-
-        process_count()
         genome_path = cfg.genome
         for step, task in enumerate(cfg.task, 1):
             stage_dir = cfg.stage_dir(step, task)
             os.makedirs(stage_dir, exist_ok=True)
             outfile = os.path.join(stage_dir, "genome.nextpolish.part.fasta")
+            part = outfile if nproc == 1 else f"{outfile}.rank{rank}"
             gp = genome_path
             runner.stage(
-                f"{step:02d}.{TASK_NAMES[task]}",
-                lambda t=task, g=gp, o=outfile: self.polish_task(t, g, o),
+                f"{step:02d}.{TASK_NAMES[task]}"
+                + (f".rank{rank}" if nproc > 1 else ""),
+                lambda t=task, g=gp, o=part: self.polish_task(t, g, o),
                 subdir=stage_dir,
             )
+            if nproc > 1:
+                # all ranks' part files complete -> rank 0 gathers (the
+                # samtools-merge/`cat` role over the shared filesystem),
+                # then everyone proceeds with the stitched genome
+                barrier(f"polish.{step}")
+                if rank == 0 and not os.path.exists(outfile):
+                    tmp = outfile + ".tmp"
+                    with open(tmp, "wb") as out:
+                        for r in range(nproc):
+                            rp = f"{outfile}.rank{r}"
+                            if os.path.exists(rp):
+                                with open(rp, "rb") as fh:
+                                    out.write(fh.read())
+                    os.replace(tmp, outfile)
+                barrier(f"gather.{step}")
             genome_path = outfile
 
+        # gather (versioned name resolved before rank 0 writes, so every
+        # rank agrees on it)
+        barrier("pre-final")
         asm = os.path.join(cfg.workdir, "genome.nextpolish.fasta")
         i = 0
         while os.path.exists(asm):
             i += 1
             asm = os.path.join(cfg.workdir, f"genome.nextpolish.v{i}.fasta")
+        if nproc > 1 and rank != 0:
+            barrier("final")
+            return asm
         lengths = []
         with open(asm, "wb") as out:
             for rec in read_fastx(genome_path):
@@ -435,6 +474,8 @@ class Pipeline:
                           + b"\n")
         stats = cal_n50_info(lengths, asm + ".stat")
         log.info("final assembly: %s\n%s", asm, stats)
+        if nproc > 1:
+            barrier("final")
         return asm
 
 

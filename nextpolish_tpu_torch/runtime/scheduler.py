@@ -6,8 +6,9 @@ submitted to a cluster, stages are Python callables executed in-process
 (device work inside is already parallel); the filesystem still holds the
 checkpoint state so re-invocation skips finished stages, matching the
 reference's semantics (`task.is_finished()` + done markers, and "simply
-run the same command again" resume, doc/FAQ.rst:19-22).  The port runs
-one process (parallel/hosts.py); several are ROADMAP A6.2.
+run the same command again" resume, doc/FAQ.rst:19-22).  In a run of
+several processes each rank's stages carry a `.rank{r}` suffix, so a
+rerun resumes each rank's own (pipeline.py, parallel/hosts.py).
 """
 from __future__ import annotations
 

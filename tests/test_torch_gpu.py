@@ -735,3 +735,51 @@ def test_calib_on_card(cuda_device, tmp_path, monkeypatch):
     (tmp_path / "calib.json").unlink()
     with pytest.raises(RuntimeError, match="probe launch failed"):
         calib.choose_engine("ont", cuda_device)
+
+
+@pytest.mark.gpu
+def test_two_ranks_cuda_match_one_process(tmp_path, cuda_device):
+    """`python -m nextpolish_tpu_torch.launch --nprocs 2 run.cfg --device
+    cuda` (both ranks on this card, task = 5,1 with the device engine)
+    writes the one-process --device cuda run's FASTA and .stat; each rank
+    polished a non-empty block and launched the hand kernels."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from nextpolish_tpu_torch.__main__ import rank_lines
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    case = sim.simulate_short_case(59, [9000, 5000, 4000], 30)
+    cfg = sim.write_project(str(tmp_path), case.names, case.drafts, "5,1",
+                            sgs=case.records,
+                            lgs=sim.long_reads(61, case.truths, 15))
+    env = dict(os.environ, NPT_CNS_ENGINE="device", PYTHONPATH=os.pathsep.join(
+        [str(root), os.environ.get("PYTHONPATH", "")]))
+    out = {}
+    for label, cmd in (
+            ("one", ["-m", "nextpolish_tpu_torch", cfg, "--device", "cuda"]),
+            ("two", ["-m", "nextpolish_tpu_torch.launch", "--nprocs", "2",
+                     cfg, "--device", "cuda"])):
+        r = subprocess.run([sys.executable, *cmd], env=env, cwd=tmp_path,
+                           capture_output=True, text=True, timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+        work = tmp_path / "work"
+        out[label] = ((work / "genome.nextpolish.fasta").read_bytes(),
+                      (work / "genome.nextpolish.fasta.stat").read_bytes())
+        if label == "two":
+            for step in ("01.lgs_polish", "02.score_chain"):
+                for rank in range(2):
+                    part = (work / step /
+                            f"genome.nextpolish.part.fasta.rank{rank}")
+                    assert part.stat().st_size > 0
+            ranks = rank_lines(r.stderr)
+            assert sorted(ranks) == [0, 1]
+            for nproc, dev, card, launches, _ in ranks.values():
+                assert nproc == 2 and dev.startswith("cuda")
+                assert card == torch.cuda.get_device_name(0)
+                assert launches["chain_forward"] > 0
+                assert launches["level_chain"] > 0
+        work.rename(tmp_path / f"work.{label}")
+    assert out["two"] == out["one"]

@@ -3,7 +3,8 @@
 them), and the CPU slices (worker2, worker1 -t 1, then -t 2 on its output,
 worker1 -t 3, -t 4 on its output and -t 5, td_score_chain_contig, and the
 run.cfg pipeline through `python -m nextpolish_tpu_torch`) run end to end,
-with `jax` and `nextpolish_tpu` made unimportable in the process."""
+and the launcher parses its arguments (launch.main, parallel.hosts), with
+`jax` and `nextpolish_tpu` made unimportable in the process."""
 import pathlib
 import re
 import subprocess
@@ -80,6 +81,16 @@ with tempfile.TemporaryDirectory() as d:
     asm = open(os.path.join(proj, "work", "genome.nextpolish.fasta"),
                "rb").read().split(b"\n")
     assert [len(x) for x in asm[1::2]] == [len(x) for x in lines[1::2]]
+# the launcher's arguments and the process protocol, one process here
+from nextpolish_tpu_torch import launch
+from nextpolish_tpu_torch.parallel import hosts
+seen = []
+launch.launch_local = lambda *a: seen.append(a) or 0
+assert launch.main(["--nprocs", "2", "run.cfg", "--device", "cpu"]) == 0
+assert [(a[0], a[1], a[3]) for a in seen] == [("run.cfg", 2, "cpu")]
+assert launch._worker_cmd("run.cfg", "cpu")[1:] == [
+    "-m", "nextpolish_tpu_torch", "run.cfg", "--device", "cpu"]
+assert hosts.init_distributed() == 1 and hosts.process_index() == 0
 assert band_align_core.launches == 0 and band_traceback.launches == 0
 assert level_chain.launches == 0 and level_winners.launches == 0
 assert forward_states.launches == 0 and traceback_batch.launches == 0

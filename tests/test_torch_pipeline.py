@@ -4,8 +4,8 @@ byte-equal for task 12 on tests/test_pipeline.py's project (6 kb, 40x
 PE150), for task 5 on a small long-read project (two contigs, about
 15x ONT-like reads from nextpolish_tpu_torch.sim) and for task 1,2,3,4
 on a diploid contig with long reads; resume writes .v1 as in JAX.  Also
-the port's own refusal (several processes) and its repaired spill
-estimate on a truncated .gz."""
+NPT_NUM_PROCS without a coordinator (one process, as in JAX) and the
+port's repaired spill estimate on a truncated .gz."""
 import gzip
 import os
 
@@ -67,14 +67,23 @@ def test_pipeline_matches_jax(tmp_path, project):
     assert open(again, "rb").read() == open(got, "rb").read()
 
 
-def test_pipeline_refuses_several_processes(tmp_path, monkeypatch):
-    """Several processes (ROADMAP A6.2) raise before the first round."""
+def test_pipeline_num_procs_without_coordinator_is_one_process(
+        tmp_path, monkeypatch):
+    """NPT_NUM_PROCS=2 without a coordinator runs as one process, as in
+    the JAX package, with no .rank file and the JAX pipeline's FASTA
+    (several processes need a coordinator, launch.py)."""
     _make_project(tmp_path, np.random.default_rng(3), L=2000, depth=5)
-    cfg = t_load(str(tmp_path / "run.cfg"))
+    cfg = tmp_path / "run.cfg"
+    cfg.write_text(cfg.read_text().replace("task = 12", "task = 1"))
+    for k in ("NPT_COORDINATOR", "SLURM_JOB_NODELIST"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("NPT_NUM_PROCS", "2")
-    with pytest.raises(RuntimeError, match="A6.2"):
-        t_main([str(tmp_path / "run.cfg"), "--device", "cpu"])
-    assert not os.path.exists(cfg.stage_dir(1, 1))
+    want, got = _both(tmp_path)
+    assert open(got, "rb").read() == open(want, "rb").read()
+    assert open(got + ".stat").read() == open(want + ".stat").read()
+    ranked = [f for _, _, fs in os.walk(tmp_path / "work_t") for f in fs
+              if ".rank" in f]
+    assert not ranked, ranked
 
 
 def test_spill_estimate_survives_a_truncated_gz(tmp_path):
