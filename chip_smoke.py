@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (nextpolish_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 1] [--contigs 4] [--phases 1,2,...,9]
+    python3 chip_smoke.py [--seed 1] [--contigs 4] [--phases 1,2,...,10]
 
 Phases (any failed check exits non-zero; nothing is caught):
   1. build   the engine-2 level-scan kernels (nvcc, sm_90a: the chain and
@@ -138,7 +138,7 @@ Phases (any failed check exits non-zero; nothing is caught):
              before and after task 4, differences to hap1 and hap2;
   9. main    several processes: one run.cfg (task = 5,1, engine 2 on the
              card through NPT_CNS_ENGINE=device) on three contigs cut from
-             phase 7(b)'s chromosome (210,000, 100,000 and 90,000 bp, so
+             phase 7(b)'s chromosome (105,000, 50,000 and 45,000 bp, so
              blc_genome gives rank 0 the first and rank 1 the others),
              phase 5's PE150 reads of them and 30x long reads (phase 7(b)'s
              depths), run as one process in this one (`python -m
@@ -160,13 +160,31 @@ Phases (any failed check exits non-zero; nothing is caught):
              winners over it), every chain-kernel launch (f bit for bit,
              the choices byte for byte) and every aligner launch.
              Printed: both walls, every stage wall of each run, the
-             launches of each rank and the differences to the truth.
+             launches of each rank and the differences to the truth;
+ 10. main    several cards in one process, as a device list that names
+             this card twice (the machine has one card): (a) the task-1
+             router score_chain_pipeline_multichip over [cuda:0, cuda:0]
+             on phase 5's genome and BAM (fetched per contig), with its
+             sharding threshold lowered in-process to 1,000,000 bp, so
+             that the chromosome runs the reads-sharded route (two reads
+             shards walked in two threads, merged per 2^19-cell window)
+             and the plasmids go round-robin to the list's two entries:
+             the FASTA byte-equal to phase 5's, one launch of each chain
+             kernel a window and a plasmid, every launch held against
+             its plain version; printed: the wall, each shard's walk, the
+             per-window merge (CUDA events around the reduction), peak
+             device memory and the launches; (b) engine 2's _run_batch
+             over [cuda:0, cuda:0] on 17 of phase 2's simulated windows
+             (groups of 8, 8 and 1 on entries 0, 1, 0), byte-equal to the
+             same call over [cuda:0], each group's winners equal to the
+             plain versions on its inputs.
 
 Cuts, all of scale, none of shape: phase 3's number of contigs
 (--contigs, 4 by default: 8 before the aligner's phase); phase 3's
 plain check of a whole window became its first 100,000 levels, phase
 9's of each window its first 16,384 (the plain chain takes about 0.2 ms
-a level on the H100); phase 7(b)'s
+a level on the H100); phase 9's genome is cut from 400,000 to 200,000
+bp (the script passed 1,050 s on a slow host); phase 7(b)'s
 chromosome is cut to 1,000,000 bp (the host half of the mapper, about
 0.2 ms a short read, would need about 500 s for the whole genome's two
 short-read rounds).  Not a cut but time given back: phase 5's simulation
@@ -180,7 +198,7 @@ contig: a contig past the real cap needs about 10 M reads, which this
 script's time limit cannot simulate); phase 8's heterozygous chromosome
 is cut to 600,000 bp (1,000,000 took the phase 193.6 s, past the 150 s
 it may take; its het rate, holes and depths are not cut).
---phases runs a subset (the build always runs; 6, 7 and 9 need 5).
+--phases runs a subset (the build always runs; 6, 7, 9 and 10 need 5).
 
 The last three lines are the kernels' JSON record (the level scan's two
 kernels, one port of the TPU kernel; task 1's two chain kernels, whose
@@ -1966,9 +1984,9 @@ def snp_main_path(tmp, dev, args):
 # phase 9: several processes (launch.py, parallel/hosts.py), two ranks
 # ---------------------------------------------------------------------------
 
-# three contigs cut from phase 7(b)'s chromosome (its first 400,000 bp),
+# three contigs cut from phase 7(b)'s chromosome (its first 200,000 bp),
 # sized so that blc_genome gives rank 0 the first and rank 1 the others
-MULTI_PIECES = ((0, 210_000), (210_000, 310_000), (310_000, 400_000))
+MULTI_PIECES = ((0, 105_000), (105_000, 155_000), (155_000, 200_000))
 HOLD_LEVELS = 16_384  # phase 9's plain check of each engine-2 window
 TIME_LINE = re.compile(r"TIME (\S+) wall=([\d.]+)s")
 
@@ -2226,6 +2244,186 @@ def multiproc_main_path(tmp, dev, args, ctx):
                enumerate(ranks)}}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: several cards in one process, a list naming this card twice
+# ---------------------------------------------------------------------------
+
+SHARD_MIN_CUT = 1_000_000  # phase 10(a)'s lowered sharding threshold
+
+
+def groups_by_entry(snap, prefix, n) -> list:
+    """The round-robin's groups sent to each of the n entries of a device
+    list (its trace counters `prefix`.entry{k}); the entries name one
+    card here, so the counters, not the devices, tell them apart."""
+    return [int(snap.get(f"{prefix}.entry{k}", {}).get("s", 0))
+            for k in range(n)]
+
+
+def multicard_router(tmp, dev, ctx):
+    """Phase 10(a): the task-1 router over two entries naming this card,
+    on phase 5's genome and BAM with the sharding threshold lowered: the
+    chromosome through the reads-sharded route, the plasmids round-robin.
+    Returns the kernel launches of that run."""
+    import torch
+
+    from nextpolish_tpu_torch.models import score_chain as sc
+    from nextpolish_tpu_torch.runtime import trace
+    from nextpolish_tpu_torch.worker1 import open_contig_source
+
+    case = ctx["case"]
+    devs = [dev, dev]
+    src = open_contig_source(ctx["bam"])
+    cfg = sc.AlgoConfig()
+    cfg.read_tlen = sc.estimate_read_tlen(src.fetch_head(10_000), cfg)
+    groups = []
+    dispatch = sc.dispatch_chain_group
+
+    def recording_dispatch(handles, device=None):
+        groups.append([h.name for h in handles])
+        dispatch(handles, device)
+
+    sc.dispatch_chain_group = recording_dispatch
+    try:
+        with capture_scans() as cap:
+            trace.reset("task1")
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_chain_launches()
+            t0 = time.perf_counter()
+            out = list(sc.score_chain_pipeline_multichip(
+                zip(case.names, case.drafts), src, cfg, devices=devs,
+                shard_min=SHARD_MIN_CUT))
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            launches = chain_launches()
+            snap = trace.snapshot("task1")
+            peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        sc.dispatch_chain_group = dispatch
+
+    def got(key, field="s"):
+        return snap.get(key, {}).get(field, 0)
+
+    check([n for n, _ in out] == list(case.names),
+          f"the router's output order {[n for n, _ in out]}")
+    for name, seq in out:
+        same = seq == ctx["polished"][name]
+        log(f"multicard: {name}: FASTA "
+            f"{'byte-equal' if same else 'DIFFERENT'} to phase 5's")
+        check(same, f"phase 10(a)'s {name} differs from phase 5's")
+    big = [n for n, d in zip(case.names, case.drafts)
+           if len(d) >= SHARD_MIN_CUT]
+    small = [n for n in case.names if n not in big]
+    n_win = int(got("task1.windows"))
+    check(n_win >= 3, f"the sharded route ran {n_win} windows")
+    want = n_win + len(small)
+    check(launches == {"chain_forward": want, "chain_traceback": want},
+          f"phase 10(a) launches {launches}, not {n_win} windows + "
+          f"{len(small)} contigs")
+    per_entry = groups_by_entry(snap, "task1.groups", len(devs))
+    check(sorted(groups) == sorted([n] for n in small)
+          and per_entry == [1, 1],
+          f"the round-robin's launches {groups} went to the entries "
+          f"{per_entry}")
+    check(int(got("task1.window_merge", "n")) == n_win,
+          "a window of the sharded route ran no timed merge")
+    walks = ", ".join(f"shard {r} {got(f'task1.shard{r}.walk'):.3f} s"
+                      for r in range(len(devs)))
+    merge_s = got("task1.window_merge")
+    win_s = got("task1.window_kernel")
+    log(f"multicard: router over {len(devs)} entries of {dev} "
+        f"(shard_min {SHARD_MIN_CUT} bp): {big} sharded in {n_win} windows "
+        f"of {sc.SHARD_WINDOW_CELLS} cells, {small} round-robin, "
+        f"{per_entry} groups to entries 0 and 1; wall {wall:.2f} s; walks "
+        f"{walks} (two "
+        f"threads; task1.walk {got('task1.walk'):.3f} s with the cell "
+        f"index); region fetch {got('task1.fetch'):.3f} s; per-window "
+        f"merge (CUDA events around the reduction over the entries) "
+        f"{merge_s / n_win * 1e3:.3f} ms, {merge_s * 1e3:.2f} ms over "
+        f"{n_win} windows; per-window forward and traceback (CUDA events) "
+        f"{win_s / n_win * 1e3:.2f} ms; max_memory_allocated {peak} B; "
+        f"kernel launches {launches}")
+    t0 = time.perf_counter()
+    hold_scans(cap, dev, "phase 10(a)")
+    log(f"multicard: {len(cap.fwd)} chain_forward and {len(cap.tb)} "
+        f"chain_traceback launches equal to their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def multicard_engine2(tmp, dev, args):
+    """Phase 10(b): engine 2's _run_batch over two entries naming this
+    card on 17 of phase 2's simulated windows (groups of 8, 8 and 1),
+    against the same call over one entry and, each group's launch, the
+    plain versions on the same inputs.  Returns the level kernels'
+    launches of the two-entry call."""
+    import torch
+
+    from nextpolish_tpu_torch.models.cns import device_dp as dd
+    from nextpolish_tpu_torch.models.cns import level_scan as ls
+    from nextpolish_tpu_torch.models.cns.dp import COV_COEF
+    from nextpolish_tpu_torch.runtime import trace
+
+    lengths = [10_000 + 1_000 * i for i in range(8)]
+    # phase 2's ont batch, its clr batch's reads (prepared for ont) and
+    # its E > 20 window
+    dws = (sim_windows(tmp, "ont", args.seed + 10, lengths, 30,
+                       RT_ERRORS["ont"], (3000, 8000))
+           + sim_windows(tmp, "ont", args.seed + 11, lengths, 30,
+                         RT_ERRORS["clr"], (3000, 8000))
+           + sim_windows(tmp, "ont", 0, [3000], 110, (0.05, 0.05, 0.05),
+                         (1000, 3000), hotspot=(1500, 1, False)))
+    devs = [dev, dev]
+    groups = []
+    dispatch = dd.dispatch_group
+
+    def recording_dispatch(g, read_type, device=None, cov_coef=None,
+                           sc_tail=False):
+        pend = dispatch(g, read_type, device, cov_coef, sc_tail)
+        groups.append((list(g), pend))
+        return pend
+
+    dd.dispatch_group = recording_dispatch
+    try:
+        trace.reset("cns.groups")
+        ls.level_chain.launches = ls.level_winners.launches = 0
+        t0 = time.perf_counter()
+        two = dd._run_batch(dws, "ont", devices=devs)
+        wall = time.perf_counter() - t0
+        launches = {"level_chain": ls.level_chain.launches,
+                    "level_winners": ls.level_winners.launches}
+    finally:
+        dd.dispatch_group = dispatch
+    sizes = [len(g) for g, _ in groups]
+    per_entry = groups_by_entry(trace.snapshot("cns.groups"), "cns.groups",
+                                len(devs))
+    check(sizes == [8, 8, 1] and per_entry == [2, 1],
+          f"engine-2 groups of {sizes} windows, {per_entry} to the entries")
+    check(launches == {"level_chain": 3, "level_winners": 3},
+          f"phase 10(b) launches {launches}")
+    one = dd._run_batch(dws, "ont", devices=[dev])
+    same = len(one) == len(two) == len(dws) and all(
+        (a[0] == b[0]).all() and (a[1] == b[1]).all()
+        for a, b in zip(two, one))
+    check(same, "engine 2 over two entries differs from one entry")
+    t0 = time.perf_counter()
+    rt_id, c = dd.READ_TYPE_ID["ont"], COV_COEF["ont"]
+    for gi, (g, pend) in enumerate(groups):
+        b = dd.pack_batch(g).to(dev)
+        pb, ps = ls.level_winners_plain(b, ls.level_chain_plain(b, rt_id, c),
+                                        rt_id)
+        pairs = [(pend.best, pb.cpu()), (pend.sc, ps.cpu())]
+        err = max_err(pairs)
+        ERR["level_winners"] = max(ERR["level_winners"], err)
+        check(err == 0 and all(torch.equal(x, y) for x, y in pairs),
+              f"phase 10(b) group {gi}: kernels != plain")
+    log(f"multicard: engine 2 over {len(devs)} entries of {dev}: "
+        f"{len(dws)} windows in groups of {sizes}, {per_entry} to entries "
+        f"0 and 1, wall {wall:.2f} s; "
+        f"byte-equal to one entry, and each group's winners to the plain "
+        f"versions ({time.perf_counter() - t0:.1f} s); launches {launches}")
+    return launches
+
+
 def band_records(launches, timed_shapes, checks):
     """The aligner kernels' entries of the kernels line: the times of the
     main path's short-read launch, the other shapes beside them."""
@@ -2262,13 +2460,13 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--contigs", type=int, default=4)
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
-                   help="phases to run (the build always runs; 6, 7 and 9 "
-                        "need 5)")
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+                   help="phases to run (the build always runs; 6, 7, 9 "
+                        "and 10 need 5)")
     args = p.parse_args(argv)
     phases = args.phase_set = {int(x) for x in args.phases.split(",")}
-    if phases & {6, 7, 9} and 5 not in phases:
-        fail("phases 6, 7 and 9 run on phase 5's simulation: add 5 to "
+    if phases & {6, 7, 9, 10} and 5 not in phases:
+        fail("phases 6, 7, 9 and 10 run on phase 5's simulation: add 5 to "
              "--phases")
 
     # the port must run with JAX and the JAX package out of reach
@@ -2363,6 +2561,20 @@ def main(argv=None) -> int:
                     by[path] = n[k]
                     rec["launches"] += n[k]
             log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+        if 10 in phases:
+            t0 = time.perf_counter()
+            by_path = {"phase 10(a): router over [cuda:0, cuda:0]":
+                       multicard_router(tmp, dev, ctx),
+                       "phase 10(b): _run_batch over [cuda:0, cuda:0]":
+                       multicard_engine2(tmp, dev, args)}
+            for rec in recs:
+                k = rec["name"]
+                by = rec.setdefault("launches_by_path",
+                                    {"main": rec["launches"]})
+                for path, n in by_path.items():
+                    by[path] = n.get(k, 0)
+                    rec["launches"] += n.get(k, 0)
+            log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,13 +1,15 @@
 """CLI: `python -m nextpolish_tpu_torch run.cfg [-l log] [--device
 cuda|cpu]` (source/nextPolish:532-553).
 
-Runs the run.cfg pipeline (pipeline.py) on one device: `cuda` (the
-default) or, when the caller asks for it, `cpu`.  Asking for `cuda` on a
-machine without a usable card raises (device.resolve_device).  With the
-NPT_* or SLURM environment of parallel/hosts.py (launch.py sets it), the
-process is one rank of several: it polishes its block of contigs on its
-own `--device` (`cuda` is its current card) and rank 0 gathers.  At the
-end each rank logs its hand-kernel launch counts.
+Runs the run.cfg pipeline (pipeline.py) on `cuda` (the default: every
+visible card, CUDA_VISIBLE_DEVICES restricts them; task 1 spreads over
+them and the other stages run on the first) or, when the caller asks for
+it, `cpu`.  Asking for `cuda` on a machine without a usable card raises
+(device.resolve_devices).  With the NPT_* or SLURM environment of
+parallel/hosts.py (launch.py sets it), the process is one rank of
+several: it polishes its block of contigs on its own cards and rank 0
+gathers.  At the end each rank logs its cards and its hand-kernel launch
+counts.
 """
 from __future__ import annotations
 
@@ -21,17 +23,18 @@ import torch
 
 from . import __version__
 from .config import load_config
-from .device import resolve_device
+from .device import resolve_devices
 from .kit import plog
 
-# each rank's last line, as main logs it
+# each rank's last line, as main logs it: its devices joined by commas,
+# then the cards' names joined by ", " in brackets
 RANK_LINE = re.compile(r"rank (\d+) of (\d+) on (\S+?)(?: \((.*)\))?: kernel "
                        r"launches (\{.*\}), engine-2 windows (\d+)")
 
 
 def rank_lines(text: str) -> dict:
     """The end-of-run lines in `text` (the log of one or more ranks):
-    {rank: (processes, device, card or None, kernel launches, engine-2
+    {rank: (processes, devices, cards or None, kernel launches, engine-2
     windows)}."""
     return {int(m[1]): (int(m[2]), m[3], m[4], json.loads(m[5]), int(m[6]))
             for m in RANK_LINE.finditer(text)}
@@ -82,16 +85,18 @@ def main(argv=None):
         from .pipeline import Pipeline
         from .runtime import trace
 
-        device = resolve_device(args.device)
-        card = (f" ({torch.cuda.get_device_name(device)})"
-                if device.type == "cuda" else "")
+        devices = resolve_devices(args.device)
+        where = ",".join(str(d) for d in devices)
+        card = (" (" + ", ".join(torch.cuda.get_device_name(d)
+                                 for d in devices) + ")"
+                if devices[0].type == "cuda" else "")
         cfg = load_config(args.config)
-        log.info("scheduled tasks: %s on %s%s", cfg.task, device, card)
-        asm = Pipeline(cfg, device=device).run()
+        log.info("scheduled tasks: %s on %s%s", cfg.task, where, card)
+        asm = Pipeline(cfg, device=devices).run()
         log.info("done: %s", asm)
         windows = trace.snapshot("cns.windows").get("cns.windows", {})
         log.info("rank %d of %d on %s%s: kernel launches %s, engine-2 "
-                 "windows %d", rank, nproc, device, card,
+                 "windows %d", rank, nproc, where, card,
                  json.dumps(kernel_launches()), windows.get("s", 0))
     finally:
         if nproc > 1:

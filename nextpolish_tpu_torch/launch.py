@@ -20,7 +20,11 @@ Every spawned process receives NPT_COORDINATOR / NPT_NUM_PROCS /
 NPT_PROC_ID (the protocol parallel/hosts.init_distributed consumes);
 under --slurm the rank env is filled from SLURM_PROCID at task startup.
 `--device cuda|cpu` (default cuda) is forwarded to every rank; each rank
-resolves it as a single process does (`cuda` is its current card).
+resolves it as a single process does (`cuda` is every card it sees).
+Local ranks of `--device cuda` see disjoint cards: rank r of n gets
+CUDA_VISIBLE_DEVICES = the launcher's visible cards r, r+n, ...; with
+fewer cards than ranks, rank r shares card r mod k.  Under ssh (one rank
+a host) and srun (which binds cards) each rank sees its host's cards.
 """
 from __future__ import annotations
 
@@ -45,13 +49,38 @@ def _worker_cmd(cfg: str, device: str) -> list[str]:
             "--device", device]
 
 
+def visible_cards(env: dict) -> list[str]:
+    """The cards a process started with `env` would see: the entries of
+    its CUDA_VISIBLE_DEVICES, or every card torch counts here."""
+    vis = env.get("CUDA_VISIBLE_DEVICES")
+    if vis is not None:
+        return [c.strip() for c in vis.split(",") if c.strip()]
+    import torch
+
+    return [str(i) for i in range(torch.cuda.device_count())]
+
+
+def rank_cards(cards: list[str], nprocs: int) -> list[str]:
+    """CUDA_VISIBLE_DEVICES of each of `nprocs` local ranks over `cards`:
+    rank r takes cards r, r+n, ...; with fewer cards than ranks, rank r
+    shares card r mod k."""
+    k = len(cards)
+    if k >= nprocs:
+        return [",".join(cards[r::nprocs]) for r in range(nprocs)]
+    return [cards[r % k] for r in range(nprocs)]
+
+
 def launch_local(cfg: str, nprocs: int, base_env: dict,
                  device: str = "cuda") -> int:
     coord = f"127.0.0.1:{_free_port()}"
+    cards = visible_cards(base_env) if device == "cuda" else []
+    split = rank_cards(cards, nprocs) if cards else None
     procs = []
     for rank in range(nprocs):
         env = dict(base_env, NPT_COORDINATOR=coord,
                    NPT_NUM_PROCS=str(nprocs), NPT_PROC_ID=str(rank))
+        if split:
+            env["CUDA_VISIBLE_DEVICES"] = split[rank]
         procs.append(subprocess.Popen(_worker_cmd(cfg, device), env=env))
     # wait on EVERY process (no short-circuit): all ranks must be reaped
     # even after an early failure, and the first nonzero code wins

@@ -175,11 +175,11 @@ def measure_engines(read_type: str, device=None) -> dict:
     if dw is not None:
         B = dd.B_MAX
         dws = [dw] * B
-        dd._run_batch(dws, read_type, device=dev, sc_tail=True)  # warm
+        dd._run_batch(dws, read_type, devices=[dev], sc_tail=True)  # warm
         t_d = float("inf")
         for _ in range(2):
             t0 = time.time()
-            dd._run_batch(dws, read_type, device=dev, sc_tail=True)
+            dd._run_batch(dws, read_type, devices=[dev], sc_tail=True)
             t_d = min(t_d, time.time() - t0)
         # prep runs on the host alongside (pipelined); charge the device
         # path the larger of transfer+scan and its host prep

@@ -28,6 +28,9 @@ into one compact entry stream in pinned host memory, copied to the card
 without blocking, scanned on the current stream, and the winners copied
 back into pinned memory; a CUDA event marks the end and collect waits on
 it.  On the CPU the same launch form runs through the plain version.
+_run_batch sends its groups round-robin over a list of devices; the
+batcher and calib launch on one device, as the JAX package's do (its
+round-robin restarts at every call of at most B_MAX windows).
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ...device import resolve_device
+from ...device import resolve_device, resolve_devices
 from ...runtime import trace
 from .dp import COV_COEF
 from .level_scan import (
@@ -393,15 +396,22 @@ def collect_group(pend: Pending) -> list:
     return out
 
 
-def _run_batch(dws, read_type, cov_coef=None, device=None, sc_tail=False):
+def _run_batch(dws, read_type, cov_coef=None, devices=None, sc_tail=False):
     """Scan a batch of DenseWindows, B_MAX windows per launch, all launched
     before any is collected; returns per-window (best [Lt,6], sc_bm
-    [Lt,6]) numpy arrays.  With sc_tail=True only each window's
-    last-position score levels are kept (all a traceback needs); earlier
-    levels read NEG."""
-    pends = [dispatch_group(dws[lo:lo + B_MAX], read_type, device, cov_coef,
-                            sc_tail)
-             for lo in range(0, len(dws), B_MAX)]
+    [Lt,6]) numpy arrays.  Group gi runs on devices[gi % len(devices)]
+    (resolve_devices: by default every visible card), as the JAX
+    package's _dispatch_batch_pallas spreads its groups over every local
+    chip; trace cns.groups.entry{k} counts the groups sent to entry k.
+    With sc_tail=True only each window's last-position score levels are
+    kept (all a traceback needs); earlier levels read NEG."""
+    devs = resolve_devices(devices)
+    pends = []
+    for gi, lo in enumerate(range(0, len(dws), B_MAX)):
+        k = gi % len(devs)
+        trace.count(f"cns.groups.entry{k}", 1)
+        pends.append(dispatch_group(dws[lo:lo + B_MAX], read_type, devs[k],
+                                    cov_coef, sc_tail))
     return [r for p in pends for r in collect_group(p)]
 
 

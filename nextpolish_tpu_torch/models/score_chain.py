@@ -11,14 +11,21 @@ Per contig:
 
 A launch runs one contig, or NPT_CHAIN_BATCH contigs of one shape bucket,
 whole (the TPU's 1 Mb window threshold, NPT_CHAIN_WINDOW_BASES, is a
-lane-padding limit and has no counterpart here).  A contig whose launch
-would pass the device's free memory at LAUNCH_BYTES_PER_CELL, or whose
-cells reach MAX_LAUNCH_CELLS (native/pileup.cpp's planes walker packs
-overflow keys as (cell*512+kmer) << 28 in an int64), takes the window
-route instead: score_chain_contig_windowed, the JAX package's
-score_chain_contig_sharded on one reads shard, which walks with the
-sparse walker and runs 2^19-cell windows (parallel/shard.py) with
-byte-exact state chaining and backward stitch.
+lane-padding limit and has no counterpart here).  score_chain_pipeline
+sends its launch groups round-robin over a list of devices (every
+visible card for `cuda`, as the JAX package spreads them over every
+local chip).  A contig whose launch would pass its device's free memory
+at LAUNCH_BYTES_PER_CELL, or whose cells reach MAX_LAUNCH_CELLS
+(native/pileup.cpp's planes walker packs overflow keys as
+(cell*512+kmer) << 28 in an int64), takes the window route on that
+device instead: score_chain_contig_windowed, score_chain_contig_sharded
+on one reads shard, which walks with the sparse walker and runs 2^19-cell
+windows (parallel/shard.py) with byte-exact state chaining and backward
+stitch.  score_chain_pipeline_multichip, the router the run.cfg pipeline
+calls, sends a contig of SHARD_MIN_LEN bases or more over several
+devices through score_chain_contig_sharded with its reads split into
+one shard a device (the JAX package's psum/pmin merge, here peer copies
+and torch ops in one process).
 
 Also provides `score_correct_region`, the shared regional correction used
 by the kmer_count no-depth rescue (contig_score_correct,
@@ -28,20 +35,19 @@ read chain variant `td_score_chain_contig` (td_score_chain1,
 lib/scorechain.c:17-29) on it at filter level 1 and the lgs rate; and
 `run_chain_region`, one region on the planes path (task 3's low-depth
 rescue, models/snp_phase.py).
-
-Not ported here: score_chain_pipeline_multichip, the several-shard route
-and the round-robin over several devices (ROADMAP A6.2b).
 """
 from __future__ import annotations
 
+import itertools
 import os
 import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, resolve_devices
 from ..io.bam import AlnBatch
 from ..io.fasta import ASCII_TO_NIB
 from ..ops import pileup as pl
@@ -81,6 +87,14 @@ LAUNCH_BYTES_PER_CELL = 2048
 # it fits the free memory at that rate
 SHARD_WINDOW_CELLS = 1 << 19
 WINDOW_BYTES_PER_CELL = 1 << 15
+# device bytes one reads shard's scatter takes a cell of its window (the
+# dense counts and first-observation keys, int32 x 512 each) on the card
+# that holds the shard
+SHARD_BYTES_PER_CELL = 2 * 4 * K3
+# contigs of this many bases or more go through the reads-sharded route
+# when there is more than one device (blc_genome cannot balance a contig
+# that dominates the genome; sharding its READS over cards can)
+SHARD_MIN_LEN = 30_000_000
 
 
 @dataclass
@@ -429,7 +443,7 @@ def score_chain_contig(name: str, draft: bytes, batch: AlnBatch,
     return score_chain_contig_end(h)
 
 
-def score_chain_pipeline(names_seqs, batch, cfg: AlgoConfig, device=None):
+def score_chain_pipeline(names_seqs, batch, cfg: AlgoConfig, devices=None):
     """Software-pipelined task 1 over contigs (the reference's
     multiprocessing Pool over contigs, lib/nextpolish1.py:223-224).
     Three overlapped stages per contig:
@@ -442,6 +456,14 @@ def score_chain_pipeline(names_seqs, batch, cfg: AlgoConfig, device=None):
             launch; a launch returns at once;
       finish (main thread): wait for the result bytes, flags + FASTA.
 
+    Launch groups go round-robin over `devices` (resolve_devices: by
+    default every visible card), group n to devices[n % len(devices)], as
+    the JAX package sends them over every local chip.  With
+    NPT_CHAIN_BATCH=1 a contig's device is chosen before its prep, so
+    the launch-or-window decision and a contig past the launch cap run
+    on it; larger groups choose theirs at dispatch, which re-checks the
+    cap there.  Trace: task1.groups.entry{k}, the groups sent to entry k.
+
     Yields (name, polished bytes) in order.  `batch` may be a region
     source (anything with .fetch / .header, e.g. io.bamregion.IndexedBam):
     each contig's reads are then fetched on demand, so peak RAM is a few
@@ -449,12 +471,20 @@ def score_chain_pipeline(names_seqs, batch, cfg: AlgoConfig, device=None):
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
-    dev = resolve_device(device)
+    devs = resolve_devices(devices)
     streaming = hasattr(batch, "fetch")
     shared_levels = None if streaming else pl.filter_sgs_chain(batch)
     G = max(1, int(os.environ.get("NPT_CHAIN_BATCH", "1")))
+    # the group counter: read only in the main thread (at submission, or
+    # at a flush), so the order of groups over devices is the input's
+    n_grp = itertools.count()
 
-    def prep(name, seq):
+    def next_device():
+        k = next(n_grp) % len(devs)
+        trace.count(f"task1.groups.entry{k}", 1)
+        return devs[k]
+
+    def prep(name, seq, dev):
         with trace.timed("task1.host"):
             if streaming:
                 with trace.timed("task1.fetch"):
@@ -469,6 +499,10 @@ def score_chain_pipeline(names_seqs, batch, cfg: AlgoConfig, device=None):
                 dispatch_chain_group([h], dev)
             return h
 
+    def submit(pool, name, seq):
+        return pool.submit(prep, name, seq,
+                           next_device() if G == 1 else devs[0])
+
     staged: dict = {}  # shape bucket -> [handle] awaiting dispatch
 
     def flush(bucket=None):
@@ -476,7 +510,7 @@ def score_chain_pipeline(names_seqs, batch, cfg: AlgoConfig, device=None):
             hs = staged.pop(b, [])
             if hs:
                 with trace.timed("task1.host"):
-                    dispatch_chain_group(hs, dev)
+                    dispatch_chain_group(hs, next_device())
 
     def stage(h):
         if G == 1 or h.done is not None:
@@ -495,20 +529,20 @@ def score_chain_pipeline(names_seqs, batch, cfg: AlgoConfig, device=None):
         prep_depth = 1 if streaming else max(2, G)
         futq: deque = deque()
         for nxt in it:
-            futq.append((nxt[0], pool.submit(prep, *nxt)))
+            futq.append((nxt[0], submit(pool, *nxt)))
             if len(futq) >= prep_depth:
                 break
         pending: deque = deque()  # handles in input order
-        # results are fetched several contigs behind their dispatch; a
-        # streaming source keeps the window tight (every pending handle
-        # holds a contig's state in RAM)
-        win = 2 if streaming else max(4, G)
+        # results are fetched several contigs behind their dispatch, two a
+        # device at least; a streaming source keeps the window tight
+        # (every pending handle holds a contig's state in RAM)
+        win = 2 if streaming else max(4, G, 2 * len(devs))
         while futq:
             name, fut = futq.popleft()
             h = fut.result()
             nxt = next(it, None)
             if nxt is not None:
-                futq.append((nxt[0], pool.submit(prep, *nxt)))
+                futq.append((nxt[0], submit(pool, *nxt)))
             stage(h)
             pending.append((name, h))
             if len(pending) > win:
@@ -522,31 +556,114 @@ def score_chain_pipeline(names_seqs, batch, cfg: AlgoConfig, device=None):
             yield pname, score_chain_contig_end(ph)
 
 
+def score_chain_pipeline_multichip(names_seqs, batch, cfg: AlgoConfig,
+                                   devices=None,
+                                   shard_min: int = SHARD_MIN_LEN):
+    """The task-1 router the run.cfg pipeline calls (the JAX package's
+    score_chain_pipeline_multichip): with one device (`devices`, default
+    every visible card) it is score_chain_pipeline; otherwise contigs of
+    `shard_min` bases or more run through the reads-sharded route over
+    every device (score_chain_contig_sharded, their reads fetched per
+    contig from a region source), and the rest through
+    score_chain_pipeline over the same devices first.  Yields (name,
+    polished bytes) in input order."""
+    devs = resolve_devices(devices)
+    if len(devs) <= 1:
+        yield from score_chain_pipeline(names_seqs, batch, cfg,
+                                        devices=devs)
+        return
+    pairs = list(names_seqs)
+    big = {n for n, s in pairs if len(s) >= shard_min}
+    small = [(n, s) for n, s in pairs if n not in big]
+    out = (dict(score_chain_pipeline(small, batch, cfg, devices=devs))
+           if small else {})
+    for n, s in pairs:
+        if n in big:
+            src = batch
+            if hasattr(batch, "fetch"):
+                with trace.timed("task1.fetch"):
+                    tid = batch.header.name2id(n)
+                    src = batch.fetch(tid, 0, max(len(s) - 1, 0))
+            yield n, score_chain_contig_sharded(n, s, src, cfg, devs)
+        else:
+            yield n, out.pop(n)
+
+
 def score_chain_contig_windowed(name: str, draft: bytes, batch: AlnBatch,
                                 cfg: AlgoConfig, device=None, levels=None,
                                 index=None) -> bytes:
     """Task 1 for ONE contig past the single-launch cap, as a sequence of
-    windows on one device (the JAX package's score_chain_contig_sharded on
-    one reads shard).  The contig's sparse pileup walks once on the host
-    (the native sparse walker, whose keys pack as (cell*512+kmer) << 9,
-    so MAX_LAUNCH_CELLS does not bind it); each window of Wc cells
-    (SHARD_WINDOW_CELLS, halved while free memory at WINDOW_BYTES_PER_CELL
-    demands it) runs parallel/shard.py's forward
-    half, whose state vector chains into the next window through s0
-    (pointer decisions are shift-invariant, so windowing is byte-exact),
-    and the traceback stitches backward from the contig end, resolving
-    each window's first-cell running-max placeholder (b_prev == 0) to
-    the previous window's msel.  Byte-equal to the single launch by test
-    (including a boundary pinned on a divergence-prone cell).  `index`
-    is the contig's cell index when the caller has built it.
+    windows on one device: score_chain_contig_sharded with one reads
+    shard (the JAX package's score_chain_contig_sharded on a one-device
+    mesh)."""
+    return score_chain_contig_sharded(name, draft, batch, cfg,
+                                      [resolve_device(device)],
+                                      levels=levels, index=index)
 
-    Trace: task1.windows (windows run), task1.window_kernel (per window,
-    CUDA events around its forward and traceback on a card)."""
-    dev = resolve_device(device)
+
+def shard_window_cells(n_dp: int, devices) -> int:
+    """Cells a window of the sharded route takes: SHARD_WINDOW_CELLS, at
+    most the contig padded, halved while any device's free
+    memory cannot hold its share (SHARD_BYTES_PER_CELL a cell for each
+    shard it holds, and WINDOW_BYTES_PER_CELL on devices[0], where the
+    merged window runs)."""
+    Wc = min(pad_to_chunk(max(n_dp, 1)), SHARD_WINDOW_CELLS)
+    held: dict = {}
+    for d in devices:
+        held[d] = held.get(d, 0) + 1
+    free = {d: device_free_bytes(d) for d in held}
+
+    def fits(w):
+        w = pad_to_chunk(w)
+        return all(w * (k * SHARD_BYTES_PER_CELL + (
+            WINDOW_BYTES_PER_CELL if d == devices[0] else 0)) <= free[d]
+            for d, k in held.items())
+
+    while Wc > CHUNK and not fits(Wc):
+        Wc //= 2
+    return Wc
+
+
+def score_chain_contig_sharded(name: str, draft: bytes, batch: AlnBatch,
+                               cfg: AlgoConfig, devices, levels=None,
+                               index=None) -> bytes:
+    """Task 1 for ONE contig with its reads sharded over `devices` (a
+    list; one shard a device, entries may repeat), as a sequence of
+    windows (port of the JAX package's score_chain_contig_sharded).
+
+    The qualifying reads split into contiguous BAM-order blocks, one a
+    shard (shard r's events precede shard r+1's, which the merge's key
+    order (r << 16) | rank relies on; only shard 0 carries the
+    contig-as-read row); the R sparse walks run in min(R, 4) threads (the
+    native walker releases the GIL).  Each window of Wc cells
+    (shard_window_cells) scatters every shard on its device, merges them
+    on devices[0] and runs the forward half there (parallel/shard.py),
+    whose state vector chains into the next window through s0 (pointer
+    decisions are shift-invariant, so windowing is byte-exact); the
+    traceback stitches backward from the contig end on devices[0],
+    resolving each window's first-cell running-max placeholder (b_prev
+    == 0) to the previous window's msel.  Byte-equal to the single
+    launch and to the JAX package by test (including a boundary pinned
+    on a divergence-prone cell).  `index` is the contig's cell index
+    when the caller has built it.
+
+    Trace: task1.walk (cell index and walks), task1.shard{r}.walk (shard
+    r's walk), task1.windows (windows run), task1.window_kernel (per
+    window, CUDA events around its forward and traceback on a card),
+    task1.window_merge (per window, CUDA events around the reduction over
+    the shards, with more than one)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    devs = resolve_devices(devices)
+    dev = devs[0]
+    R = len(devs)
     tid = batch.header.name2id(name)
     Lc = len(draft)
     if levels is None:
         levels = pl.filter_sgs_chain(batch)
+    # contiguous read blocks in BAM order
+    qual = np.flatnonzero(levels >= 1)
+    bounds = [len(qual) * r // R for r in range(R + 1)]
     with trace.timed("task1.walk"):
         if index is None:
             index = pl.build_cell_index(batch, levels, tid, 0, Lc - 1)
@@ -555,16 +672,31 @@ def score_chain_contig_windowed(name: str, draft: bytes, batch: AlnBatch,
         view = state.index.region_view(0, Lc - 1)
         cell0 = int(state.index.cell_of[0])
         n_dp = view.n_cells_dp
-        p = pl.build_pileup_sparse(batch, levels, 1, view, tid, contig_nib,
-                                   cfg.trim_len_edge)
-    maxt = int(p.total[:n_dp].max()) if n_dp else 1
+
+        def build(r):
+            t0 = time.perf_counter()
+            lr = np.zeros_like(levels)
+            sel = qual[bounds[r]:bounds[r + 1]]
+            lr[sel] = levels[sel]
+            p = pl.build_pileup_sparse(batch, lr, 1, view, tid, contig_nib,
+                                       cfg.trim_len_edge,
+                                       include_ref=(r == 0))
+            trace.add(f"task1.shard{r}.walk", time.perf_counter() - t0)
+            return p
+
+        if R == 1:
+            shards = [build(0)]
+        else:
+            with ThreadPoolExecutor(max_workers=min(R, 4)) as pool:
+                shards = list(pool.map(build, range(R)))
+    total_sum = np.zeros(n_dp, dtype=np.int64)
+    for p in shards:
+        total_sum += p.total[:n_dp]
+    maxt = int(total_sum.max()) if n_dp else 1
     TH = _pow2(min(maxt + 1, TH_CAP))
     th = coverage_thresholds(TH - 1, cfg.min_count_ratio_skip
                              ).astype(np.int32)
-    Wc = min(pad_to_chunk(max(n_dp, 1)), SHARD_WINDOW_CELLS)
-    while (Wc > CHUNK and pad_to_chunk(Wc) * WINDOW_BYTES_PER_CELL
-           > device_free_bytes(dev)):
-        Wc //= 2
+    Wc = shard_window_cells(n_dp, devs)
     # the scan kernels take 128 x a power of two cells; cells past a
     # window's end are identity transitions, which leave every value
     # before them unchanged
@@ -583,24 +715,30 @@ def score_chain_contig_windowed(name: str, draft: bytes, batch: AlnBatch,
     th_d = torch.from_numpy(th).to(dev)
     tbs = []  # per window: (Ptab, flags, msel, n_dp_w)
     spans = []  # per window: CUDA events around its forward
+    merges = [] if R > 1 else None  # per window: around its reduction
     s0 = None
     for w, wlo in enumerate(wlos):
         whi = min(wlo + Wc, n_dp)
         n_dp_w = whi - wlo
-        a = int(np.searchsorted(p.uk, wlo * K3))
-        b = int(np.searchsorted(p.uk, whi * K3))
-        uk = torch.from_numpy(p.uk[a:b] - wlo * K3).to(dev)
-        cn = torch.from_numpy(np.minimum(p.cn[a:b], 0xFFFF).astype(np.int32))
-        key = torch.from_numpy(p.rk[a:b].astype(np.int32))
-        total = np.zeros(Lw, dtype=np.int32)
-        total[:n_dp_w] = p.total[wlo:whi]
+        parts = []
+        for r, (p, d) in enumerate(zip(shards, devs)):
+            a = int(np.searchsorted(p.uk, wlo * K3))
+            b = int(np.searchsorted(p.uk, whi * K3))
+            key = (r << 16) | p.rk[a:b].astype(np.int32)
+            total = np.zeros(Lw, dtype=np.int32)
+            total[:n_dp_w] = p.total[wlo:whi]
+            parts.append((
+                torch.from_numpy(p.uk[a:b] - wlo * K3).to(d),
+                torch.from_numpy(np.minimum(p.cn[a:b], 0xFFFF).astype(
+                    np.int32)).to(d),
+                torch.from_numpy(key).to(d), torch.from_numpy(total).to(d)))
         refkmer = np.zeros(Lw, dtype=np.int32)
-        refkmer[:n_dp_w] = p.refkmer[wlo:whi]
+        refkmer[:n_dp_w] = shards[0].refkmer[wlo:whi]
         e0 = events()
         Ptab, flags, msel, fend = reads_merge_fwd(
-            uk, cn.to(dev), key.to(dev), torch.from_numpy(total).to(dev),
-            torch.from_numpy(refkmer).to(dev), th_d, rate, n_dp_w, s0,
-            w == 0, Lw)
+            parts, torch.from_numpy(refkmer).to(dev), th_d, rate, n_dp_w,
+            s0, w == 0, Lw, events=merges)
+        del parts
         spans.append([e0, events()])
         tbs.append((Ptab, flags, msel, n_dp_w))
         s0 = fend
@@ -629,6 +767,8 @@ def score_chain_contig_windowed(name: str, draft: bytes, batch: AlnBatch,
         for f0, f1, t0, t1 in spans:
             trace.add("task1.window_kernel",
                       (f0.elapsed_time(f1) + t0.elapsed_time(t1)) / 1e3)
+        for m0, m1 in merges or ():
+            trace.add("task1.window_merge", m0.elapsed_time(m1) / 1e3)
     trace.count("task1.windows", len(wlos))
     trace.count("task1.chain_cells", Lw * len(wlos))
     _finish_correction_sparse(state, n_dp, cell0, packed, cfg)

@@ -1,21 +1,26 @@
-"""Task 1's window route on one card: port of nextpolish_tpu/parallel/
-shard.py's make_reads_merge_fwd (its inner `fwd`) and make_merge_traceback
-(its inner `tb`) for a single reads shard.
+"""Task 1's window route and its reads-sharded merge: port of
+nextpolish_tpu/parallel/shard.py's make_reads_merge_fwd (its inner `fwd`)
+and make_merge_traceback (its inner `tb`).
 
-A contig too large for one chain launch runs as a sequence of windows
-(models/score_chain.py::score_chain_contig_windowed).  Per window,
-`reads_merge_fwd` scatters the window's sorted sparse pileup dense on the
-device, derives each cell's first-observation ranks, and runs
+A contig too large for one chain launch, or one whose reads are sharded
+over several devices, runs as a sequence of windows
+(models/score_chain.py::score_chain_contig_sharded).  Per window,
+`reads_merge_fwd` scatters each reads shard's sorted sparse pileup dense
+on that shard's device (`scatter_shard`), merges the shards on the first
+device (`merge_shards`: SUM of the counts and totals, MIN of the
+first-observation keys, the u16 clamp after the sum; the JAX package's
+psum/pmin over the 'reads' mesh axis, here peer copies and torch ops in
+one process), and runs once, on that device, the ranks and
 ops/chain.py's chain_pointers (the emission, the transitions, the forward
-scan `chain_forward` and the pointer table), seeded by s0 from the first cell's prefixes (window 0) or
-by the previous window's end state; `merge_traceback` walks one window
-back (`chain_traceback`) from the base its successor demands.  With one
-shard the JAX package's psum/pmin over the 'reads' axis are identities;
-the places where several shards would all-reduce (SUM of the counts and
-totals, MIN of the first-observation keys) are marked below.
+scan `chain_forward` and the pointer table), seeded by s0 from the first
+cell's prefixes (window 0) or by the previous window's end state
+(`window_forward`).  The JAX package computes the merged forward on
+every chip (replicated outputs); the bytes are the same.
+`merge_traceback` walks one window back (`chain_traceback`) from the
+base its successor demands.
 
 Not ported: make_sharded_polish_step, shard_inputs and make_mesh (only
-the JAX package's dryrun uses them) and the several-shard route.
+the JAX package's dryrun uses them).
 """
 from __future__ import annotations
 
@@ -29,26 +34,62 @@ from ..ops.symbols import K3, S
 KBIG = np.int32(0x7FFFFFFF)  # first-observation key for unobserved slots
 
 
-def reads_merge_fwd(uk, cn, key, total, refkmer, th, rate, n_dp: int,
-                    s0_in, first: bool, L: int, chunk: int = CHUNK):
-    """Forward half of one window, one shard.  uk [E] int64 sorted
-    window-local keys cell*512+kmer (cells < L), cn [E] int32 counts
-    (clamped to 0xFFFF), key [E] int32 first-observation keys, total /
-    refkmer [L] int32 (zero past n_dp), th [TH] int32 coverage LUT, rate
-    a float, s0_in [8] f32 (the previous window's end state; unused
-    when `first`), all on one device; L = 128 x a power of two.  Returns
-    (P [L, 8] int8 predecessor table, flags [L] int16 (zero bit 8 |
-    per-base low-coverage bits 0-7), msel [L] int8, fend [8] f32 state
-    at the window's last valid cell)."""
+def scatter_shard(uk, cn, key, L: int):
+    """One reads shard's window dense, on the shard's own device: uk [E]
+    int64 sorted window-local keys cell*512+kmer (cells < L), cn [E]
+    counts (each under 0x10000), key [E] int32 first-observation keys
+    ((shard << 16) | per-cell rank).  Returns (counts [L*512] int32,
+    keys [L*512] int32, KBIG where unobserved)."""
+    i32 = torch.int32
+    dense = torch.zeros(L * K3, dtype=i32, device=uk.device).index_add_(
+        0, uk, cn.to(i32))
+    kd = torch.full((L * K3,), int(KBIG), dtype=i32, device=uk.device)
+    kd.scatter_reduce_(0, uk, key.to(i32), reduce="amin")
+    return dense, kd
+
+
+def merge_shards(scattered, totals, dev, events=None):
+    """The reads shards' all-reduce on `dev`: SUM of the dense counts and
+    of the totals [L], MIN of the first-observation keys, then the u16
+    clamp (after the sum, as the JAX package clamps after its psum, so a
+    count split over shards clamps as the whole count does).  Each
+    shard's tensors come over by a peer copy (none when a shard already
+    lies on `dev`); the first shard's become the result.  On a card, the
+    CUDA events around the reduction are appended to `events` when it is
+    a list.  Returns (counts [L, 512] int32, kmin [L, 512] int32, total
+    [L] int32)."""
+    timed = events is not None and dev.type == "cuda"
+    if timed:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record(torch.cuda.current_stream(dev))
+    (counts, kmin), total = scattered[0], totals[0]
+    counts, kmin = counts.to(dev), kmin.to(dev)
+    total = total.to(dev, dtype=torch.int32, copy=True)
+    for (dense, kd), tot in zip(scattered[1:], totals[1:]):
+        counts.add_(dense.to(dev, non_blocking=True))
+        torch.minimum(kmin, kd.to(dev, non_blocking=True), out=kmin)
+        total.add_(tot.to(dev, non_blocking=True))
+    counts.clamp_max_(0xFFFF)
+    if timed:
+        e1 = torch.cuda.Event(enable_timing=True)
+        e1.record(torch.cuda.current_stream(dev))
+        events.append((e0, e1))
+    L = total.shape[0]
+    return counts.reshape(L, K3), kmin.reshape(L, K3), total
+
+
+def window_forward(counts, kmin, total, refkmer, th, rate, n_dp: int,
+                   s0_in, first: bool, chunk: int = CHUNK):
+    """Forward half of one merged window on one device: counts / kmin [L,
+    512] int32 from merge_shards, total / refkmer [L] int32 (zero past
+    n_dp), th [TH] int32 coverage LUT, rate a float, s0_in [8] f32 (the
+    previous window's end state; unused when `first`); L = 128 x a power
+    of two.  Returns (P [L, 8] int8 predecessor table, flags [L] int16
+    (zero bit 8 | per-base low-coverage bits 0-7), msel [L] int8, fend
+    [8] f32 state at the window's last valid cell)."""
     dev = refkmer.device
     i32 = torch.int32
-    dense = torch.zeros(L * K3, dtype=i32, device=dev).index_add_(
-        0, uk, cn.to(i32))
-    kd = torch.full((L * K3,), int(KBIG), dtype=i32, device=dev)
-    kd.scatter_reduce_(0, uk, key.to(i32), reduce="amin")
-    # several shards: all_reduce SUM of dense and total, MIN of kd here
-    counts = dense.clamp_max_(0xFFFF).reshape(L, K3)  # u16 clamp
-    kmin = kd.reshape(L, K3)
+    L = counts.shape[0]
     obs = counts > 0
     # merged per-cell insertion order: rank of each observed kmer by its
     # min first-observation key (argsort, then the inverse permutation,
@@ -56,7 +97,7 @@ def reads_merge_fwd(uk, cn, key, total, refkmer, th, rate, n_dp: int,
     # per cell among observed)
     order = torch.argsort(torch.where(obs, kmin, int(KBIG)), dim=1,
                           stable=True)
-    del kd, kmin
+    del kmin
     rank = torch.empty_like(order).scatter_(
         1, order, torch.arange(K3, device=dev).expand(L, K3))
     del order
@@ -81,6 +122,23 @@ def reads_merge_fwd(uk, cn, key, total, refkmer, th, rate, n_dp: int,
     flags = ((lowb.to(i32) << lanes.to(i32)).sum(dim=1)
              | ((total == 1).to(i32) << S)).to(torch.int16)
     return Ptab[0].to(torch.int8), flags, msel[0].to(torch.int8), fend
+
+
+def reads_merge_fwd(shards, refkmer, th, rate, n_dp: int, s0_in,
+                    first: bool, L: int, chunk: int = CHUNK, events=None):
+    """Forward half of one window over its reads shards: `shards` holds
+    per shard (uk, cn, key, total [L]) on that shard's device (see
+    scatter_shard); refkmer, th and s0_in lie on the device the merged
+    window runs on, which returns everything (see window_forward);
+    `events` as merge_shards takes it.  Every shard scatters before the
+    merge waits on any."""
+    # the merged tensors pass straight on, so window_forward frees each
+    # as soon as it is done with it
+    return window_forward(
+        *merge_shards([scatter_shard(uk, cn, key, L)
+                       for uk, cn, key, _ in shards],
+                      [s[3] for s in shards], refkmer.device, events),
+        refkmer, th, rate, n_dp, s0_in, first, chunk)
 
 
 def merge_traceback(Ptab, flags, b_end, chunk: int = CHUNK):

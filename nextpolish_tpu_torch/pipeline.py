@@ -17,19 +17,22 @@ Deviations from the reference, by design:
     use plain names as well).
 
 Where the port differs from the JAX package's driver:
-  * every device stage runs on the one `device` the caller names (the
-    mapper's banded DP and traceback, task 1's chain DP, task 2's no-depth
-    rescue, task 3's low-depth rescue, the task 5/6 engine chosen by
-    models/cns/window.default_engine);
-  * task 1 runs score_chain_pipeline, which on one device is what the JAX
-    router does; a contig past the single-launch cap takes the window
-    route inside it;
+  * the caller names the devices (`device`: ``cuda``, every visible
+    card, or one device); task 1 runs the JAX router,
+    score_chain_pipeline_multichip, over all of them (contigs
+    round-robin over the cards, contigs of SHARD_MIN_LEN (30 Mb) and
+    more with their reads sharded over the cards), and every other
+    device stage runs on the first (the mapper's banded DP and
+    traceback, task 2's no-depth rescue, task 3's low-depth rescue, the
+    task 5/6 engine chosen by models/cns/window.default_engine), as the
+    JAX package's mapper and batcher use its first chip;
   * in a run of several processes (parallel/hosts.py) each rank polishes
-    its block of contigs on its own device, contigs of SHARD_MIN_LEN
-    (30 Mb) and more too: the JAX router would build a reads mesh over
-    every process's devices for those, but the window route is
-    byte-equal to the sharded one (tests/test_shard_merge.py), so the
-    bytes are the same;
+    its block of contigs on its own cards (launch.py gives the ranks of
+    one host disjoint cards where there are enough) and shards a contig
+    of SHARD_MIN_LEN and more over those cards only, where the JAX
+    router would build a reads mesh over every process's devices; the
+    sharded route is byte-equal on any number of shards
+    (tests/test_torch_multidev.py), so the bytes are the same;
   * with several processes, rank 0 alone rotates the workdir (rewrite)
     and every rank spills its BAM parts into a directory of its own
     (ROADMAP C8);
@@ -47,7 +50,7 @@ from .align.index import GenomeIndex
 from .align.longread import map_long_batch
 from .align.mapper import map_short_batch, records_to_batch
 from .config import RunConfig, TASK_NAMES
-from .device import resolve_device
+from .device import resolve_devices
 from .io import bam as bamio
 from .io.fasta import FastaIndex, SeqRecord, read_fastx, write_fasta
 from .kit import cal_n50_info, plog
@@ -60,7 +63,9 @@ log = plog()
 class Pipeline:
     def __init__(self, cfg: RunConfig, device=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        # task 1 spreads over every device; the other stages take the first
+        self.devices = resolve_devices(device)
+        self.device = self.devices[0]
         self.algo = AlgoConfig()
         self._sgs_paired = False
 
@@ -321,15 +326,16 @@ class Pipeline:
                 self.algo.read_tlen = estimate_read_tlen(head_of(batch),
                                                          self.algo)
             from .models.kmer_count import kmer_count_contig
-            from .models.score_chain import score_chain_pipeline
+            from .models.score_chain import score_chain_pipeline_multichip
 
             if task == 1:
-                # one device: the pipelined single-launch path, with the
-                # window route for contigs past the launch cap (what the
-                # JAX router does on a one-device mesh)
-                results = score_chain_pipeline(
+                # the router: contigs of SHARD_MIN_LEN and more shard
+                # their READS over the cards and merge on the first
+                # (samtools merge as a reduction, source/nextPolish:
+                # 119-156); the rest go round-robin over the cards
+                results = score_chain_pipeline_multichip(
                     ((n, genome.fetch(n).seq) for n in todo), batch,
-                    self.algo, device=self.device)
+                    self.algo, devices=self.devices)
             else:
                 engine = lambda name, seq: kmer_count_contig(
                     name, seq, per_contig(batch, name, len(seq)), self.algo,

@@ -10,7 +10,9 @@ Bring-your-own-BAM workflow (doc/TUTORIAL.rst:50-82):
 Tasks: 1=score_chain, 2=kmer_count, 3=snp_phase, 4=snp_valid, 5=legacy
 lgspolish (the long-read chain engine; it reads -l, or -s in its place).
 --device picks where the chain DPs run (default cuda; cuda without a
-usable card raises).  Output records are `>name len\\nseq` like the reference worker;
+usable card raises): -t 1 sends its contigs round-robin over every
+visible card (CUDA_VISIBLE_DEVICES restricts them), the other tasks run
+on the first.  Output records are `>name len\\nseq` like the reference worker;
 resume skips contigs already present in -o.  The flags are the JAX
 worker's.
 """
@@ -20,7 +22,7 @@ import argparse
 import os
 import sys
 
-from .device import resolve_device
+from .device import resolve_devices
 from .io.bam import read_bam
 from .io.fasta import FastaIndex
 from .kit import plog
@@ -109,7 +111,8 @@ def per_contig(src, name, seqlen):
 
 def main(argv=None):
     args, _ = build_argparser().parse_known_args(argv)
-    device = resolve_device(args.device)
+    devices = resolve_devices(args.device)
+    device = devices[0]
     cfg = AlgoConfig(
         trim_len_edge=args.trim_len_edge,
         ext_len_edge=args.ext_len_edge,
@@ -177,7 +180,7 @@ def main(argv=None):
     if args.task == 1:
         results = score_chain_pipeline(
             ((n, genome.fetch(n).seq) for n in todo), sgs, cfg,
-            device=device)
+            devices=devices)
     else:
         results = ((n, engine(n, genome.fetch(n).seq)) for n in todo)
     for name, seq in results:

@@ -7,7 +7,8 @@ Bring-your-own-BAM workflow (doc/TUTORIAL.rst:128-150):
 
 -l takes a file-of-filenames of sorted BAMs (merged in memory) or a single
 BAM path.  -r in {ont, clr, hifi, rs}.  --device picks where the level
-scan runs (default cuda; cuda without a usable card raises).
+scan runs (default cuda: the first visible card, as the JAX package's
+batcher launches on its first chip; cuda without a usable card raises).
 NPT_CNS_ENGINE=device|native|numpy overrides the engine choice.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ import argparse
 import os
 import sys
 
-from .device import resolve_device
+from .device import resolve_devices
 from .io.bam import AlnBatch, read_bam
 from .io.fasta import FastaIndex
 from .kit import parse_num_unit, plog
@@ -66,7 +67,7 @@ def main(argv=None):
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device of the level scan (default: cuda)")
     args, _ = p.parse_known_args(argv)
-    device = resolve_device(args.device)
+    device = resolve_devices(args.device)[0]
 
     if args.bam_list.endswith(".bam"):
         paths = [args.bam_list]

@@ -174,8 +174,8 @@ def test_window_halves_match_jax_on_one_device_mesh(first):
     tot_p, refk_p = np.zeros(Lp, np.int32), np.zeros(Lp, np.int32)
     tot_p[:L], refk_p[:L] = total, refk
     P_t, fl_t, msel_t, fend_t = tsh.reads_merge_fwd(
-        _t(uk), _t(cn), _t(key), _t(tot_p), _t(refk_p), _t(th), 0.5, n_dp,
-        _t(s0_in), first, Lp)
+        [(_t(uk), _t(cn), _t(key), _t(tot_p))], _t(refk_p), _t(th), 0.5,
+        n_dp, _t(s0_in), first, Lp)
     assert np.array_equal(P_t[:L].numpy(), np.asarray(P_j))
     assert np.array_equal(fl_t[:L].numpy().astype(np.int64),
                           np.asarray(fl_j).astype(np.int64))

@@ -77,7 +77,7 @@ def test_device_link_dp_matches_numpy(case):
     edges, dw = tdd.prepare_window(w.merged, w.coverage, w.L)
     for rt in ("ont", "clr", "rs", "hifi"):
         s_np, b_np = link_dp(edges, w.coverage, rt)
-        ((best, sc),) = tdd._run_batch([dw], rt, device="cpu")
+        ((best, sc),) = tdd._run_batch([dw], rt, devices=["cpu"])
         s_dev, b_dev = tdd._to_edge_outputs(dw, best, sc)
         assert np.array_equal(b_np, b_dev)
         assert np.array_equal(s_np[b_np], s_dev[b_dev])

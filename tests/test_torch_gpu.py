@@ -2,9 +2,10 @@
 their plain PyTorch versions (the engine-2 level scan: the chain and the
 winners; task 1's chain DP: the forward scan and the traceback), the
 pinned-buffer launch paths, the dense chain batch (task 2's no-depth
-rescue), task 1's window route against its single launch, the mappers'
-banded DP and traceback (band_align, band_traceback) with a forced
-sub-batch split, engine calibration on the card, the planes DP at
+rescue), task 1's window route against its single launch, task 1's
+reads-sharded route and engine 2's groups over [cuda:0, cuda:0], the
+mappers' banded DP and traceback (band_align, band_traceback) with a
+forced sub-batch split, engine calibration on the card, the planes DP at
 off-grid rates and task 3's small launches, and worker2 / worker1 -t 1
 / -t 2 / -t 3 / -t 4 / -t 5 / td_score_chain_contig / map_short_batch /
 the run.cfg pipeline (task 12, 5 and 1,2,3,4) --device cuda against
@@ -149,11 +150,31 @@ def test_launch_path_on_card_matches_cpu(windows, cuda_device):
     """dispatch/collect through pinned buffers, full scores and score
     tails, give the CPU path's results."""
     for sc_tail in (False, True):
-        got = tdd._run_batch(windows, "ont", device=cuda_device,
+        got = tdd._run_batch(windows, "ont", devices=[cuda_device],
                              sc_tail=sc_tail)
-        ref = tdd._run_batch(windows, "ont", device="cpu", sc_tail=sc_tail)
+        ref = tdd._run_batch(windows, "ont", devices=["cpu"], sc_tail=sc_tail)
         for (gb, gs), (rb, rs) in zip(got, ref):
             assert np.array_equal(gb, rb) and np.array_equal(gs, rs)
+
+
+@pytest.mark.gpu
+def test_run_batch_over_two_entries_on_card_matches_cpu(windows,
+                                                        cuda_device):
+    """Engine 2's groups round-robin over [cuda:0, cuda:0] (groups of 8,
+    8 and 5 on entries 0, 1, 0) give the CPU path's results."""
+    from nextpolish_tpu_torch.runtime import trace
+    dws = windows * 3
+    devs = [cuda_device, cuda_device]
+    before = _launches()
+    trace.reset("cns.groups")
+    got = tdd._run_batch(dws, "ont", devices=devs)
+    assert _launches() == (before[0] + 3, before[1] + 3)
+    assert {k: v["s"] for k, v in trace.snapshot("cns.groups").items()} \
+        == {"cns.groups.entry0": 2, "cns.groups.entry1": 1}
+    ref = tdd._run_batch(dws, "ont", devices=["cpu"])
+    assert len(got) == len(ref) == len(dws)
+    for (gb, gs), (rb, rs) in zip(got, ref):
+        assert np.array_equal(gb, rb) and np.array_equal(gs, rs)
 
 
 @pytest.mark.gpu
@@ -448,6 +469,38 @@ def test_windowed_route_on_card_matches_single_launch(tmp_path, cuda_device,
     assert got == want
     assert got == tsc.score_chain_contig_windowed(
         "ctg0", case.drafts[0], batch, cfg, device="cpu")
+
+
+@pytest.mark.gpu
+def test_sharded_route_over_two_entries_on_card_matches_cpu(
+        tmp_path, cuda_device, monkeypatch):
+    """Task 1's reads-sharded route over [cuda:0, cuda:0] (4,096-cell
+    windows, one launch of each chain kernel a window, the merge timed)
+    writes the single launch's bytes and those of the route over [cpu,
+    cpu]."""
+    from nextpolish_tpu_torch.models import score_chain as tsc
+    from nextpolish_tpu_torch.runtime import trace
+
+    case = sim.simulate_short_case(44, [20000], 30)
+    _, bam = sim.write_case(case, str(tmp_path))
+    batch = read_bam(bam)
+    cfg = tsc.AlgoConfig()
+    draft = case.drafts[0]
+    want = tsc.score_chain_contig("ctg0", draft, batch, cfg,
+                                  device=cuda_device)
+    monkeypatch.setattr(tsc, "SHARD_WINDOW_CELLS", 4096)
+    devs = [cuda_device, cuda_device]
+    trace.reset("task1")
+    before = _chain_launches()
+    got = tsc.score_chain_contig_sharded("ctg0", draft, batch, cfg, devs)
+    snap = trace.snapshot("task1")
+    n_win = int(snap["task1.windows"]["s"])
+    assert n_win >= 5
+    assert _chain_launches() == (before[0] + n_win, before[1] + n_win)
+    assert snap["task1.window_merge"]["n"] == n_win
+    assert got == want
+    assert got == tsc.score_chain_contig_sharded("ctg0", draft, batch, cfg,
+                                                 ["cpu", "cpu"])
 
 
 @pytest.mark.gpu

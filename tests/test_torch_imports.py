@@ -1,10 +1,13 @@
 """The port stands alone: every module of nextpolish_tpu_torch imports
 (kmer_count, parallel/shard, the aligner, the pipeline and calib among
-them), and the CPU slices (worker2, worker1 -t 1, then -t 2 on its output,
-worker1 -t 3, -t 4 on its output and -t 5, td_score_chain_contig, and the
-run.cfg pipeline through `python -m nextpolish_tpu_torch`) run end to end,
-and the launcher parses its arguments (launch.main, parallel.hosts), with
-`jax` and `nextpolish_tpu` made unimportable in the process."""
+them), and the CPU slices (worker2 and its level scan over two device
+entries, worker1 -t 1 and task 1's router and round-robin over two
+device entries, then -t 2 on its output, worker1 -t 3, -t 4 on its
+output and -t 5, td_score_chain_contig, and the run.cfg pipeline through
+`python -m nextpolish_tpu_torch`) run end to end, and the launcher parses
+its arguments and splits the cards (launch.main, launch.rank_cards,
+parallel.hosts), with `jax` and `nextpolish_tpu` made unimportable in the
+process."""
 import pathlib
 import re
 import subprocess
@@ -41,6 +44,20 @@ with tempfile.TemporaryDirectory() as d:
                          "--device", "cpu"]) == 0
     lines = open(out, "rb").read().split(b"\n")
     assert lines[0].startswith(b">ctg0 ") and len(lines[1]) > 2900
+    # engine 2's groups over two device entries, as over one
+    import numpy as np
+    from nextpolish_tpu_torch.device import resolve_devices
+    from nextpolish_tpu_torch.models.cns import device_dp
+    from nextpolish_tpu_torch.models.cns.window import window_prep
+    w = window_prep(bamio.read_bam(bam), 0,
+                    np.frombuffer(case.drafts[0], dtype=np.uint8), 0,
+                    len(case.drafts[0]), "ont", None, case.names[0])
+    dws = [device_dp.prepare_window(w.merged, w.coverage, w.L)[1]] * 9
+    one = device_dp._run_batch(dws, "ont", devices=["cpu"])
+    two = device_dp._run_batch(dws, "ont",
+                               devices=resolve_devices(["cpu", "cpu"]))
+    assert all((a[0] == b[0]).all() and (a[1] == b[1]).all()
+               for a, b in zip(one, two))
     case = sim.simulate_short_case(5, [3000, 1200], 20)
     fa, bam = sim.write_case(case, os.path.join(d, "short"))
     out = os.path.join(d, "short.fa")
@@ -49,6 +66,20 @@ with tempfile.TemporaryDirectory() as d:
     lines = open(out, "rb").read().split(b"\n")
     assert lines[0].startswith(b">ctg0 ") and len(lines[1]) > 2900
     assert lines[2].startswith(b">ctg1 ") and len(lines[3]) > 1100
+    # several devices in one process: the router's sharded route and the
+    # contig round-robin over two device entries
+    from nextpolish_tpu_torch.models.score_chain import (
+        estimate_read_tlen, score_chain_pipeline,
+        score_chain_pipeline_multichip)
+    two = resolve_devices(["cpu", "cpu"])
+    tb = bamio.read_bam(bam)
+    cfg = AlgoConfig()
+    cfg.read_tlen = estimate_read_tlen(tb, cfg)
+    pairs = list(zip(case.names, case.drafts))
+    want = list(score_chain_pipeline(pairs, tb, cfg, devices="cpu"))
+    for shard_min in (2000, 10 ** 9):
+        assert list(score_chain_pipeline_multichip(
+            pairs, tb, cfg, devices=two, shard_min=shard_min)) == want
     out2 = os.path.join(d, "short2.fa")
     assert worker1.main(["-g", out, "-s", bam, "-t", "2", "-o", out2,
                          "--device", "cpu"]) == 0
@@ -88,6 +119,7 @@ seen = []
 launch.launch_local = lambda *a: seen.append(a) or 0
 assert launch.main(["--nprocs", "2", "run.cfg", "--device", "cpu"]) == 0
 assert [(a[0], a[1], a[3]) for a in seen] == [("run.cfg", 2, "cpu")]
+assert launch.rank_cards(["0", "1", "2", "3"], 2) == ["0,2", "1,3"]
 assert launch._worker_cmd("run.cfg", "cpu")[1:] == [
     "-m", "nextpolish_tpu_torch", "run.cfg", "--device", "cpu"]
 assert hosts.init_distributed() == 1 and hosts.process_index() == 0

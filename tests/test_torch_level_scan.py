@@ -119,8 +119,8 @@ def test_plain_matches_lax_scan(windows, rt, monkeypatch):
     monkeypatch.setenv("NPT_CNS_PALLAS", "0")
     pairs = _all(windows)
     ref = jdd._run_batch([j for j, _ in pairs], rt)
-    got = tdd._run_batch([p for _, p in pairs], rt, device="cpu")
-    tail = tdd._run_batch([p for _, p in pairs], rt, device="cpu",
+    got = tdd._run_batch([p for _, p in pairs], rt, devices=["cpu"])
+    tail = tdd._run_batch([p for _, p in pairs], rt, devices=["cpu"],
                           sc_tail=True)
     for (_, pdw), (rb, rs), (gb, gs), (tb, ts) in zip(pairs, ref, got,
                                                       tail):
@@ -141,7 +141,7 @@ def test_plain_matches_pallas_interpret(windows, rt):
     for sc_tail in (False, True):
         ref = jdd._run_batch_pallas([j for j, _ in pairs], rt,
                                     sc_tail=sc_tail)
-        got = tdd._run_batch([p for _, p in pairs], rt, device="cpu",
+        got = tdd._run_batch([p for _, p in pairs], rt, devices=["cpu"],
                              sc_tail=sc_tail)
         for (_, pdw), (rb, rs), (gb, gs) in zip(pairs, ref, got):
             assert np.array_equal(rb, gb)
@@ -153,9 +153,9 @@ def test_plain_is_per_window_exact(windows):
     """Batching is invisible: each window scanned alone equals the same
     window inside a batch with wider E / Vb neighbours."""
     pairs = _all(windows)
-    batched = tdd._run_batch([p for _, p in pairs], "ont", device="cpu")
+    batched = tdd._run_batch([p for _, p in pairs], "ont", devices=["cpu"])
     for (_, pdw), (bb, bs) in zip(pairs, batched):
-        ((ab, as_),) = tdd._run_batch([pdw], "ont", device="cpu")
+        ((ab, as_),) = tdd._run_batch([pdw], "ont", devices=["cpu"])
         assert np.array_equal(ab, bb) and np.array_equal(as_, bs)
 
 
