@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (nextpolish_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 1] [--contigs 4] [--phases 1,2,...,10]
+    python3 chip_smoke.py [--seed 1] [--contigs 4] [--phases 1,2,...,11]
 
 Phases (any failed check exits non-zero; nothing is caught):
   1. build   the engine-2 level-scan kernels (nvcc, sm_90a: the chain and
@@ -60,7 +60,16 @@ Phases (any failed check exits non-zero; nothing is caught):
              (both kernels
              and the torch ops) re-run twice under torch.profiler, its
              summed kernel time printed as task1.dp_device_ms (the two
-             readings must agree within 5%); with phase 7, the reads of
+             readings must agree within 5%), then once more through the
+             stage profiler (profile_chain.py): each chain.* stage's
+             device time and share printed, and the line `task1.stages
+             {json}`; the stages and `other` split that run's device
+             events, so they add up to its whole by construction: the
+             whole must lie within 5% of task1.dp_device_ms (a run of
+             its own), `other` must hold under 5% of it, every fwd_*
+             kernel must fall in chain.forward and every
+             tb_* kernel in chain.traceback, and the profiled run's result
+             bytes must equal the launch's; with phase 7, the reads of
              phase 7's genome written as r1/r2.fq.gz;
   6. main    on phase 5's BAM and output (it writes no BAM): (a) the
              chromosome alone through task 1's window route, forced
@@ -177,7 +186,18 @@ Phases (any failed check exits non-zero; nothing is caught):
              over [cuda:0, cuda:0] on 17 of phase 2's simulated windows
              (groups of 8, 8 and 1 on entries 0, 1, 0), byte-equal to the
              same call over [cuda:0], each group's winners equal to the
-             plain versions on its inputs.
+             plain versions on its inputs;
+ 11. main    the port's dry run (dryrun.py), needing no earlier phase:
+             entry("cuda")'s choices (the dense chain DP at L = 512) equal
+             to the same call with plain=True, then dryrun_multichip(2,
+             "cuda") over [cuda:0, cuda:0] (task 1's router with
+             shard_min=0 against score_chain_contig on one entry, engine
+             2's _run_batch on two 6 kb windows against one entry); each
+             of the four kernels it reaches (chain_forward,
+             chain_traceback, level_chain, level_winners) must have been
+             launched, and every launch is held against its plain
+             version; printed: the wall and the launches, which the
+             kernels line lists under the path `phase 11: dryrun`.
 
 Cuts, all of scale, none of shape: phase 3's number of contigs
 (--contigs, 4 by default: 8 before the aligner's phase); phase 3's
@@ -970,15 +990,18 @@ def profiled_device_ms(fn, dev):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from nextpolish_tpu_torch.profile_chain import device_events
+
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize(dev)
     per = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    # kernels, memsets and copies: not the GPU-side copies of ops/chain.py's
+    # chain.* ranges, which span kernels already counted
+    for e in device_events(prof):
+        per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     check(per, "torch.profiler recorded no device time")
     return sum(per.values()), per
 
@@ -1011,6 +1034,53 @@ def chain_bounds(B: int, L: int, step_cycles: int, mhz: float) -> dict:
                   "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
     depth = 256 + 2 * (nch.bit_length() - 1)
     return out, depth * step_cycles / (mhz * 1e6) * 1e3
+
+
+def stage_split(big, dev, dp_ms):
+    """The largest launch's DP (`big`: its buffers, key and launch) once
+    more through the stage profiler: each chain.* stage's device time and
+    share, the line `task1.stages {json}`, and the checks.  The stages and
+    `other` split the run's device events, so they add up to its whole
+    by construction; the checks are that whole within 5% of
+    task1.dp_device_ms (an earlier run of the same buffer), `other` under
+    5% of it, every fwd_* kernel in chain.forward and every tb_* kernel
+    in chain.traceback, the result bytes equal to the launch's."""
+    import numpy as np
+
+    from nextpolish_tpu_torch import profile_chain as pc
+
+    t0 = time.perf_counter()
+    report, result = pc.profile_stages(big[0], big[1], dev)
+    stages, whole = report["stages"], report["whole_ms"]
+    for line in pc.format_report(report):
+        log(f"task1 stages: {line}")
+    log(f"task1 stages: the profiled whole {whole:.3f} ms; "
+        f"task1.dp_device_ms {dp_ms:.3f} "
+        f"ms; each stage's share of it: " + ", ".join(
+            f"{s} {v['ms'] / dp_ms * 100:.1f}%" for s, v in stages.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    log("task1.stages " + json.dumps({
+        "B": report["B"], "L": report["L"], "whole_ms": whole,
+        "dp_device_ms": dp_ms,
+        "stages": {s: {"ms": v["ms"], "share": v["share"], "top": v["top"]}
+                   for s, v in stages.items()}}))
+    check(abs(whole - dp_ms) <= 0.05 * dp_ms,
+          f"the profiled whole {whole} ms is not within 5% of "
+          f"task1.dp_device_ms {dp_ms} ms: the profiler lost kernels")
+    check(stages[pc.OTHER]["share"] < 0.05,
+          f"{stages[pc.OTHER]['share'] * 100:.1f}% of the DP's device time "
+          f"is in no stage: {stages[pc.OTHER]['top']}")
+    for stage, tag in (("chain.forward", "fwd_"),
+                       ("chain.traceback", "tb_")):
+        where = {s for s, v in stages.items()
+                 for n in v["kernels"] if tag in n}
+        check(where == {stage}, f"{tag}* kernels in {sorted(where)}, not "
+              f"in {stage} alone")
+    same = np.array_equal(result, big[2].wait())
+    log(f"task1 stages: the profiled run's result bytes "
+        f"{'equal' if same else 'DIFFERENT'} to the launch's")
+    check(same, "the profiled DP's result differs from the launch's")
+    return report
 
 
 def task1_main_path(tmp, dev, args, ctx):
@@ -1172,6 +1242,7 @@ def task1_main_path(tmp, dev, args, ctx):
     check(abs(readings[0] - readings[1]) <= 0.05 * max(readings),
           f"task1.dp_device_ms readings {readings} differ by more than 5%")
     del dbuf
+    stage_split(big, dev, readings[-1])
     recs = []
     for k in CHAIN_KERNELS:
         log(f"task1: {k} on the largest launch (B={B}, L={L}): "
@@ -1992,15 +2063,17 @@ TIME_LINE = re.compile(r"TIME (\S+) wall=([\d.]+)s")
 
 
 class capture_levels:
-    """While active, the batcher's engine-2 launches are recorded: each
+    """While active, the engine-2 launches of `module` (the batcher's by
+    default; models/cns/device_dp for _run_batch's) are recorded: each
     group's windows, read type and coverage coefficient, and its Pending,
     whose host results stay alive with the record."""
 
-    def __init__(self):
-        from nextpolish_tpu_torch.models.cns import batcher
+    def __init__(self, module=None):
+        if module is None:
+            from nextpolish_tpu_torch.models.cns import batcher as module
 
-        self.mod = batcher
-        self.orig = batcher.dispatch_group
+        self.mod = module
+        self.orig = module.dispatch_group
         self.groups = []
 
     def __enter__(self):
@@ -2059,6 +2132,31 @@ def hold_levels(cap, dev, label):
                   f"window {i})")
             held += nl
     return held
+
+
+def hold_groups(cap, dev, label):
+    """Each recorded launch, whole, through the plain versions on the
+    card: the launch's winners and scores equal to theirs."""
+    import torch
+
+    from nextpolish_tpu_torch.models.cns import level_scan as ls
+    from nextpolish_tpu_torch.models.cns.device_dp import (
+        READ_TYPE_ID,
+        pack_batch,
+    )
+    from nextpolish_tpu_torch.models.cns.dp import COV_COEF
+
+    for gi, (dws, rt, cov, pend) in enumerate(cap.groups):
+        b = pack_batch(dws).to(dev)
+        rt_id = READ_TYPE_ID[rt]
+        c = COV_COEF[rt] if cov is None else cov
+        pb, ps = ls.level_winners_plain(b, ls.level_chain_plain(b, rt_id, c),
+                                        rt_id)
+        pairs = [(pend.best, pb.cpu()), (pend.sc, ps.cpu())]
+        err = max_err(pairs)
+        ERR["level_winners"] = max(ERR["level_winners"], err)
+        check(err == 0 and all(torch.equal(x, y) for x, y in pairs),
+              f"{label} engine-2 group {gi}: kernels != plain")
 
 
 def run_logged(cmd, env, cwd, label):
@@ -2356,11 +2454,8 @@ def multicard_engine2(tmp, dev, args):
     against the same call over one entry and, each group's launch, the
     plain versions on the same inputs.  Returns the level kernels'
     launches of the two-entry call."""
-    import torch
-
     from nextpolish_tpu_torch.models.cns import device_dp as dd
     from nextpolish_tpu_torch.models.cns import level_scan as ls
-    from nextpolish_tpu_torch.models.cns.dp import COV_COEF
     from nextpolish_tpu_torch.runtime import trace
 
     lengths = [10_000 + 1_000 * i for i in range(8)]
@@ -2373,17 +2468,7 @@ def multicard_engine2(tmp, dev, args):
            + sim_windows(tmp, "ont", 0, [3000], 110, (0.05, 0.05, 0.05),
                          (1000, 3000), hotspot=(1500, 1, False)))
     devs = [dev, dev]
-    groups = []
-    dispatch = dd.dispatch_group
-
-    def recording_dispatch(g, read_type, device=None, cov_coef=None,
-                           sc_tail=False):
-        pend = dispatch(g, read_type, device, cov_coef, sc_tail)
-        groups.append((list(g), pend))
-        return pend
-
-    dd.dispatch_group = recording_dispatch
-    try:
+    with capture_levels(dd) as cap:
         trace.reset("cns.groups")
         ls.level_chain.launches = ls.level_winners.launches = 0
         t0 = time.perf_counter()
@@ -2391,9 +2476,7 @@ def multicard_engine2(tmp, dev, args):
         wall = time.perf_counter() - t0
         launches = {"level_chain": ls.level_chain.launches,
                     "level_winners": ls.level_winners.launches}
-    finally:
-        dd.dispatch_group = dispatch
-    sizes = [len(g) for g, _ in groups]
+    sizes = [len(g[0]) for g in cap.groups]
     per_entry = groups_by_entry(trace.snapshot("cns.groups"), "cns.groups",
                                 len(devs))
     check(sizes == [8, 8, 1] and per_entry == [2, 1],
@@ -2406,21 +2489,58 @@ def multicard_engine2(tmp, dev, args):
         for a, b in zip(two, one))
     check(same, "engine 2 over two entries differs from one entry")
     t0 = time.perf_counter()
-    rt_id, c = dd.READ_TYPE_ID["ont"], COV_COEF["ont"]
-    for gi, (g, pend) in enumerate(groups):
-        b = dd.pack_batch(g).to(dev)
-        pb, ps = ls.level_winners_plain(b, ls.level_chain_plain(b, rt_id, c),
-                                        rt_id)
-        pairs = [(pend.best, pb.cpu()), (pend.sc, ps.cpu())]
-        err = max_err(pairs)
-        ERR["level_winners"] = max(ERR["level_winners"], err)
-        check(err == 0 and all(torch.equal(x, y) for x, y in pairs),
-              f"phase 10(b) group {gi}: kernels != plain")
+    hold_groups(cap, dev, "phase 10(b)")
     log(f"multicard: engine 2 over {len(devs)} entries of {dev}: "
         f"{len(dws)} windows in groups of {sizes}, {per_entry} to entries "
         f"0 and 1, wall {wall:.2f} s; "
         f"byte-equal to one entry, and each group's winners to the plain "
         f"versions ({time.perf_counter() - t0:.1f} s); launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the port's dry run (dryrun.py) over [cuda:0, cuda:0]
+# ---------------------------------------------------------------------------
+
+def dryrun_main_path(dev):
+    """Phase 11: dryrun.entry on the card against its plain versions, then
+    dryrun.dryrun_multichip(2, "cuda"); the four kernels it reaches must
+    launch, and every launch is held against its plain version.  Returns
+    the launches."""
+    import torch
+
+    from nextpolish_tpu_torch import dryrun
+    from nextpolish_tpu_torch.models.cns import device_dp as dd
+    from nextpolish_tpu_torch.models.cns import level_scan as ls
+
+    with capture_scans() as cap, capture_levels(dd) as lcap:
+        zero_chain_launches()
+        ls.level_chain.launches = ls.level_winners.launches = 0
+        t0 = time.perf_counter()
+        fn, args = dryrun.entry("cuda")
+        got = fn(*args)
+        res = dryrun.dryrun_multichip(2, "cuda")
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = dict(chain_launches(),
+                        level_chain=ls.level_chain.launches,
+                        level_winners=ls.level_winners.launches)
+    for k, n in launches.items():
+        check(n > 0, f"the dry run launched {k} no time")
+    t1 = time.perf_counter()
+    same = torch.equal(got, fn(*args, plain=True))
+    log(f"dryrun: entry's choices {tuple(got.shape)} "
+        f"{'equal' if same else 'DIFFERENT'} to the plain versions'")
+    check(same, "dryrun.entry's kernels differ from the plain versions")
+    hold_scans(cap, dev, "phase 11")
+    hold_groups(lcap, dev, "phase 11")
+    log(f"dryrun: over [{dev}, {dev}]: task 1's router byte-equal to one "
+        f"entry on {res['bases']} bases, engine 2's {res['windows']} "
+        f"windows equal to one entry; wall {wall:.2f} s (dryrun_multichip "
+        f"{res['wall_s']:.2f} s); launches {launches}; {len(cap.fwd)} "
+        f"chain_forward, {len(cap.tb)} chain_traceback and "
+        f"{len(lcap.groups)} engine-2 launches equal to their plain "
+        f"versions ({time.perf_counter() - t1:.1f} s)")
     return launches
 
 
@@ -2460,7 +2580,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--contigs", type=int, default=4)
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                    help="phases to run (the build always runs; 6, 7, 9 "
                         "and 10 need 5)")
     args = p.parse_args(argv)
@@ -2575,6 +2695,16 @@ def main(argv=None) -> int:
                     by[path] = n.get(k, 0)
                     rec["launches"] += n.get(k, 0)
             log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+        if 11 in phases:
+            t0 = time.perf_counter()
+            launches = dryrun_main_path(dev)
+            for rec in recs:
+                k = rec["name"]
+                by = rec.setdefault("launches_by_path",
+                                    {"main": rec["launches"]})
+                by["phase 11: dryrun"] = launches.get(k, 0)
+                rec["launches"] += launches.get(k, 0)
+            log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

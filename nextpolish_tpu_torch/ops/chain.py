@@ -28,6 +28,13 @@ the window route of models/score_chain.py, through parallel/shard.py):
                          the host wrappers (dispatch_chain_sparse takes the
                          planes path; the entries path is not ported)
 
+chain_correct_planes_batch and chain_planes_core run their steps inside
+torch.profiler.record_function ranges while a profiler runs, in order:
+chain.decode, chain.emission, chain.lattice, chain.forward,
+chain.pointers, chain.traceback and chain.flags (profile_chain.py splits
+the DP's device time by them).  A range changes no result and no
+launch; with no profiler recording the thread none is opened (_stage).
+
 forward_states and traceback_batch are the two hand-written CUDA kernels
 of csrc/chain_scan.cu (`chain_forward`, `chain_traceback`).  Each wrapper
 runs its kernel on CUDA tensors and its plain PyTorch version on CPU
@@ -60,12 +67,14 @@ and start_host_copy.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import threading
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..runtime import nvcc, trace
@@ -777,6 +786,17 @@ def _emit(adj: torch.Tensor, tot1: torch.Tensor, rate) -> torch.Tensor:
     return x.float()
 
 
+def _stage(name: str):
+    """A torch.profiler range named `name` around one step of the planes
+    DP while a profiler records this thread (profile_chain.py splits the
+    DP by them), else nothing: outside a profile a range still costs
+    host time (12 us on the H100 machine's host, PERF.md), seven a DP
+    call."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
+
+
 def _scatter_slots(n_out, index, vals, reduce, init):
     """out[..., s] = reduce over slots j of vals[:, j] where index[:, j] ==
     s, from `init`: index/vals [B, Emax, L] -> [B, L, n_out]."""
@@ -818,90 +838,98 @@ def chain_planes_core(kpl, cpl, refk, total, valid, rate, s0_all, ov, B, L,
     Ltot = B * L
     kd = kpl.reshape(B, Emax, L)
     cd = cpl.reshape(B, Emax, L)
-    occ = cd > 0
-    tot = total.reshape(B, 1, L)
-    refq = refk.reshape(B, 1, L)
-    dec = ((tot > 1) & (kd == refq)).to(f32)
-    tot1 = torch.where(tot > 1, tot - 1, tot).to(f32)
-    em = torch.where(occ, _emit(cd.to(f32) - dec, tot1, rate), neg)
-    b2 = (kd >> 3) & 7
-    b3 = kd & 7
-    # transition lattice: max over the slots per (cell, b2*8+b3)
-    A = _scatter_slots(64, (b2 * 8 + b3).long(), em, "amax", neg)
-    if ov is not None:
-        e_cell, e_kmer, ovcn, ovrk = ov
-        is_pad = e_cell >= Ltot
-        c_cl = torch.clamp_max(e_cell, Ltot - 1)
-        tot_e = total[c_cl]
-        dec_e = ((tot_e > 1) & (e_kmer == refk[c_cl])).to(f32)
-        tot1_e = torch.where(tot_e > 1, tot_e - 1, tot_e).to(f32)
-        em_e = torch.where(is_pad, neg,
-                           _emit(ovcn.to(f32) - dec_e, tot1_e, rate))
-        oe_b2 = (e_kmer >> 3) & 7
-        oe_b3 = e_kmer & 7
-        segA = torch.where(is_pad, Ltot * 64,
-                           c_cl * 64 + oe_b2 * 8 + oe_b3)
-        Ao = _segment(Ltot * 64, segA, em_e, "amax", neg)
-        A = torch.maximum(A, Ao[: Ltot * 64].reshape(B, L, 64))
-    A = A.reshape(Ltot, S, S)
-    A[:, :, 0] = A.amax(dim=2)
-    A = torch.where(valid[:, None, None], A, _eye(dev)[None])
-    f = (forward_states_plain if plain else forward_states)(
-        A.reshape(B, L, S, S), s0_all, chunk)
+    with _stage("chain.emission"):
+        occ = cd > 0
+        tot = total.reshape(B, 1, L)
+        refq = refk.reshape(B, 1, L)
+        dec = ((tot > 1) & (kd == refq)).to(f32)
+        tot1 = torch.where(tot > 1, tot - 1, tot).to(f32)
+        em = torch.where(occ, _emit(cd.to(f32) - dec, tot1, rate), neg)
+        if ov is not None:
+            e_cell, e_kmer, ovcn, ovrk = ov
+            is_pad = e_cell >= Ltot
+            c_cl = torch.clamp_max(e_cell, Ltot - 1)
+            tot_e = total[c_cl]
+            dec_e = ((tot_e > 1) & (e_kmer == refk[c_cl])).to(f32)
+            tot1_e = torch.where(tot_e > 1, tot_e - 1, tot_e).to(f32)
+            em_e = torch.where(is_pad, neg,
+                               _emit(ovcn.to(f32) - dec_e, tot1_e, rate))
+    with _stage("chain.lattice"):
+        b2 = (kd >> 3) & 7
+        b3 = kd & 7
+        # transition lattice: max over the slots per (cell, b2*8+b3)
+        A = _scatter_slots(64, (b2 * 8 + b3).long(), em, "amax", neg)
+        if ov is not None:
+            oe_b2 = (e_kmer >> 3) & 7
+            oe_b3 = e_kmer & 7
+            segA = torch.where(is_pad, Ltot * 64,
+                               c_cl * 64 + oe_b2 * 8 + oe_b3)
+            Ao = _segment(Ltot * 64, segA, em_e, "amax", neg)
+            A = torch.maximum(A, Ao[: Ltot * 64].reshape(B, L, 64))
+        A = A.reshape(Ltot, S, S)
+        A[:, :, 0] = A.amax(dim=2)
+        A = torch.where(valid[:, None, None], A, _eye(dev)[None])
+    with _stage("chain.forward"):
+        f = (forward_states_plain if plain else forward_states)(
+            A.reshape(B, L, S, S), s0_all, chunk)
     del A
-    fprev = torch.cat([s0_all[:, None, :], f[:, :-1]], dim=1)  # [B, L, S]
-    # per-slot chain scores: fprev picked by b2
-    fg = torch.gather(fprev[:, None].expand(B, Emax, L, S), 3,
-                      b2.long()[..., None])[..., 0]
-    sc = torch.where(occ, fg + em, neg)  # [B, Emax, L]
-    b3l = b3.long()
-    # the entry-space path's segment max initializes at NEG (floors V)
-    V = _scatter_slots(S, b3l, torch.where(occ, sc, neg), "amax", neg)
-    obs2 = _scatter_slots(S, b3l, occ.to(i32), "amax", 0) > 0
-    cov2 = _scatter_slots(S, b3l, torch.where(occ, cd, 0), "sum", 0)
-    # slot index IS the per-cell first-observation rank in the planes
-    slot = torch.arange(Emax, dtype=i32, device=dev)[None, :, None]
-    Rm = _scatter_slots(S, b3l, torch.where(occ, slot, big), "amin", big)
-    if ov is not None:
-        seg3 = torch.where(is_pad, Ltot * 8, c_cl * 8 + oe_b3)
-        fg_o = fprev.reshape(Ltot, S)[c_cl, oe_b2.long()]
-        sc_o = torch.where(is_pad, neg, fg_o + em_e)
-        Vo = _segment(Ltot * 8, seg3, sc_o, "amax", neg)
-        obs_o = _segment(Ltot * 8, seg3, (~is_pad).to(i32), "amax", 0)
-        cov_o = _segment(Ltot * 8, seg3,
-                         torch.where(is_pad, 0, ovcn), "sum", 0)
-        Rm_o = _segment(Ltot * 8, seg3, torch.where(is_pad, big, ovrk),
-                        "amin", big)
-        V = torch.maximum(V, Vo[: Ltot * 8].reshape(B, L, S))
-        obs2 = obs2 | (obs_o[: Ltot * 8].reshape(B, L, S) > 0)
-        cov2 = cov2 + cov_o[: Ltot * 8].reshape(B, L, S)
-        Rm = torch.minimum(Rm, Rm_o[: Ltot * 8].reshape(B, L, S))
-    # winners per (cell, suffix) against the MERGED V, exact min-rank
-    # tie rule (base_add_score / base_max_score, lib/base.c:159-197)
-    Vg = torch.gather(V[:, None].expand(B, Emax, L, S), 3,
-                      b3l[..., None])[..., 0]
-    wkey = torch.where((sc == Vg) & occ, slot * 8 + b2, big)
-    Wk = _scatter_slots(S, b3l, wkey, "amin", big)
-    if ov is not None:
-        Vm_o = torch.maximum(Vo, torch.cat([V.reshape(Ltot * 8),
-                                            Vo.new_full((1,), neg)]))
-        elig_o = (~is_pad) & (sc_o == Vm_o[seg3])
-        wkey_o = torch.where(elig_o, ovrk * 8 + oe_b2, big)
-        Wko = _segment(Ltot * 8, seg3, wkey_o, "amin", big)
-        Wk = torch.minimum(Wk, Wko[: Ltot * 8].reshape(B, L, S))
-    V2 = V.reshape(Ltot, S)
-    obs2 = obs2.reshape(Ltot, S)
-    wb2 = torch.where(obs2, Wk.reshape(Ltot, S) & 7, 0)
-    Rm2 = Rm.reshape(Ltot, S)
-    Vmax = torch.where(obs2, V2, neg).amax(dim=1)
-    cand = (V2 == Vmax[:, None]) & obs2
-    msel = torch.argmin(torch.where(cand, Rm2, big), dim=1).to(i32)
-    msel_prev = torch.cat([torch.zeros((B, 1), dtype=i32, device=dev),
-                           msel.reshape(B, L)[:, :-1]], dim=1).reshape(Ltot)
-    P = torch.where(wb2 != 0, wb2, msel_prev[:, None])
-    P = torch.where(valid[:, None], P,
-                    torch.arange(S, dtype=i32, device=dev)[None])
-    return P.to(i32), msel, cov2.reshape(Ltot, S)
+    with _stage("chain.pointers"):
+        # [B, L, S]
+        fprev = torch.cat([s0_all[:, None, :], f[:, :-1]], dim=1)
+        # per-slot chain scores: fprev picked by b2
+        fg = torch.gather(fprev[:, None].expand(B, Emax, L, S), 3,
+                          b2.long()[..., None])[..., 0]
+        sc = torch.where(occ, fg + em, neg)  # [B, Emax, L]
+        b3l = b3.long()
+        # the entry-space path's segment max initializes at NEG (floors V)
+        V = _scatter_slots(S, b3l, torch.where(occ, sc, neg), "amax", neg)
+        obs2 = _scatter_slots(S, b3l, occ.to(i32), "amax", 0) > 0
+        cov2 = _scatter_slots(S, b3l, torch.where(occ, cd, 0), "sum", 0)
+        # slot index IS the per-cell first-observation rank in the planes
+        slot = torch.arange(Emax, dtype=i32, device=dev)[None, :, None]
+        Rm = _scatter_slots(S, b3l, torch.where(occ, slot, big), "amin",
+                            big)
+        if ov is not None:
+            seg3 = torch.where(is_pad, Ltot * 8, c_cl * 8 + oe_b3)
+            fg_o = fprev.reshape(Ltot, S)[c_cl, oe_b2.long()]
+            sc_o = torch.where(is_pad, neg, fg_o + em_e)
+            Vo = _segment(Ltot * 8, seg3, sc_o, "amax", neg)
+            obs_o = _segment(Ltot * 8, seg3, (~is_pad).to(i32), "amax", 0)
+            cov_o = _segment(Ltot * 8, seg3,
+                             torch.where(is_pad, 0, ovcn), "sum", 0)
+            Rm_o = _segment(Ltot * 8, seg3, torch.where(is_pad, big, ovrk),
+                            "amin", big)
+            V = torch.maximum(V, Vo[: Ltot * 8].reshape(B, L, S))
+            obs2 = obs2 | (obs_o[: Ltot * 8].reshape(B, L, S) > 0)
+            cov2 = cov2 + cov_o[: Ltot * 8].reshape(B, L, S)
+            Rm = torch.minimum(Rm, Rm_o[: Ltot * 8].reshape(B, L, S))
+        # winners per (cell, suffix) against the MERGED V, exact min-rank
+        # tie rule (base_add_score / base_max_score, lib/base.c:159-197)
+        Vg = torch.gather(V[:, None].expand(B, Emax, L, S), 3,
+                          b3l[..., None])[..., 0]
+        wkey = torch.where((sc == Vg) & occ, slot * 8 + b2, big)
+        Wk = _scatter_slots(S, b3l, wkey, "amin", big)
+        if ov is not None:
+            Vm_o = torch.maximum(Vo, torch.cat([V.reshape(Ltot * 8),
+                                                Vo.new_full((1,), neg)]))
+            elig_o = (~is_pad) & (sc_o == Vm_o[seg3])
+            wkey_o = torch.where(elig_o, ovrk * 8 + oe_b2, big)
+            Wko = _segment(Ltot * 8, seg3, wkey_o, "amin", big)
+            Wk = torch.minimum(Wk, Wko[: Ltot * 8].reshape(B, L, S))
+        V2 = V.reshape(Ltot, S)
+        obs2 = obs2.reshape(Ltot, S)
+        wb2 = torch.where(obs2, Wk.reshape(Ltot, S) & 7, 0)
+        Rm2 = Rm.reshape(Ltot, S)
+        Vmax = torch.where(obs2, V2, neg).amax(dim=1)
+        cand = (V2 == Vmax[:, None]) & obs2
+        msel = torch.argmin(torch.where(cand, Rm2, big), dim=1).to(i32)
+        msel_prev = torch.cat([torch.zeros((B, 1), dtype=i32, device=dev),
+                               msel.reshape(B, L)[:, :-1]],
+                              dim=1).reshape(Ltot)
+        P = torch.where(wb2 != 0, wb2, msel_prev[:, None])
+        P = torch.where(valid[:, None], P,
+                        torch.arange(S, dtype=i32, device=dev)[None])
+        return P.to(i32), msel, cov2.reshape(Ltot, S)
 
 
 def chain_correct_planes_batch(bufs: torch.Tensor, L, Emax, EOV, ET, FMT,
@@ -920,35 +948,38 @@ def chain_correct_planes_batch(bufs: torch.Tensor, L, Emax, EOV, ET, FMT,
         b32 = bufs.view(torch.int16).to(torch.int32) & 0xFFFF
     B = b32.shape[0]
     dev = b32.device
-    kpl, cpl, refk, total, ov, s0mask, rate, n_dp, nov, th = planes_decode(
-        b32, B, L, Emax, EOV, ET, FMT, TH, PS)
-    valid = (torch.arange(L, device=dev)[None, :]
-             < n_dp[:, None]).reshape(B * L)
-    lanes = torch.arange(S, dtype=torch.int32, device=dev)
-    s0_all = torch.where((s0mask[:, None] >> lanes) & 1 != 0, 0.0,
-                         float(NEG)).to(torch.float32)
-    ovt = None
-    if EOV:
-        # one global entry list: each row's cells shift by its row
-        # offset, per-row pad lanes redirect past B*L
-        ovcell, ovkm, ovcn, ovrk = ov
-        live = torch.arange(EOV, device=dev)[None, :] < nov[:, None]
-        ovc_g = torch.where(live, ovcell + (torch.arange(B, device=dev)
-                                            * L)[:, None], B * L)
-        ovt = (ovc_g.reshape(-1), ovkm.reshape(-1), ovcn.reshape(-1),
-               ovrk.reshape(-1))
+    with _stage("chain.decode"):
+        kpl, cpl, refk, total, ov, s0mask, rate, n_dp, nov, th = \
+            planes_decode(b32, B, L, Emax, EOV, ET, FMT, TH, PS)
+        valid = (torch.arange(L, device=dev)[None, :]
+                 < n_dp[:, None]).reshape(B * L)
+        lanes = torch.arange(S, dtype=torch.int32, device=dev)
+        s0_all = torch.where((s0mask[:, None] >> lanes) & 1 != 0, 0.0,
+                             float(NEG)).to(torch.float32)
+        ovt = None
+        if EOV:
+            # one global entry list: each row's cells shift by its row
+            # offset, per-row pad lanes redirect past B*L
+            ovcell, ovkm, ovcn, ovrk = ov
+            live = torch.arange(EOV, device=dev)[None, :] < nov[:, None]
+            ovc_g = torch.where(live, ovcell + (torch.arange(B, device=dev)
+                                                * L)[:, None], B * L)
+            ovt = (ovc_g.reshape(-1), ovkm.reshape(-1), ovcn.reshape(-1),
+                   ovrk.reshape(-1))
     P, msel, cov2 = chain_planes_core(kpl, cpl, refk, total, valid, rate,
                                       s0_all, ovt, B, L, Emax, chunk, plain)
-    lastidx = (torch.arange(B, device=dev) * L
-               + torch.clamp_min(n_dp - 1, 0))
-    b_ends = msel[lastidx].contiguous()
-    choice = (traceback_batch_plain if plain else traceback_batch)(
-        P.reshape(B, L, S).contiguous(), b_ends, chunk).reshape(B * L)
-    cov = torch.gather(cov2, 1, choice.long()[:, None])[:, 0]
-    zero = (total == 1).to(torch.int8) << FLAGB_ZERO
-    low = (cov < th[torch.clamp_max(total, TH - 1).long()]).to(
-        torch.int8) << FLAGB_COV
-    return (choice | zero | low).reshape(B, L)
+    with _stage("chain.traceback"):
+        lastidx = (torch.arange(B, device=dev) * L
+                   + torch.clamp_min(n_dp - 1, 0))
+        b_ends = msel[lastidx].contiguous()
+        choice = (traceback_batch_plain if plain else traceback_batch)(
+            P.reshape(B, L, S).contiguous(), b_ends, chunk).reshape(B * L)
+    with _stage("chain.flags"):
+        cov = torch.gather(cov2, 1, choice.long()[:, None])[:, 0]
+        zero = (total == 1).to(torch.int8) << FLAGB_ZERO
+        low = (cov < th[torch.clamp_max(total, TH - 1).long()]).to(
+            torch.int8) << FLAGB_COV
+        return (choice | zero | low).reshape(B, L)
 
 
 def chain_correct_planes(buf: torch.Tensor, L, Emax, EOV, ET, FMT, TH,

@@ -3,8 +3,11 @@
 diploid genome with both (`simulate_diploid_case`), as a
 BAM (`write_case`) or as the read files of a run.cfg project
 (`write_reads`); random sparse pileups for the chain DP alone
-(`random_pileup`); and inputs of the mappers' banded DP alone
-(`band_case`).
+(`random_pileup`); inputs of the mappers' banded DP alone
+(`band_case`); and the benchmark workloads of the repo's bench.py
+(`make_task1_case`, an AlnBatch in memory; `make_task5_case`, long reads
+through the built-in mapper), which the dryrun and the stage profiler
+run.
 
 A random `truth` genome is drawn; the `draft` is the truth with
 substitutions only, so a read's exact alignment against the truth is also
@@ -577,3 +580,151 @@ def band_indel_case(seed: int, Bt: int, R: int, B: int, mode: str):
             t[b] = ref[:R + B]
             tlen[b] = R + B
     return q, t, qlen, tlen
+
+
+# ---------------------------------------------------------------------------
+# the benchmark workloads' fixtures (bench.py's _sim_read, make_task1_case
+# and make_task5_case, copied with the imports changed; make_task5_case
+# maps on the host): the dryrun's and the stage profiler's inputs, the
+# same arrays and bytes for the same rng
+# ---------------------------------------------------------------------------
+
+def _sim_read(rng, true, s, ref_span, bases, p_ins=0.002, p_del=0.002,
+              p_sub=0.01):
+    """Noisy copy of true[s:s+ref_span] with its exact CIGAR, fully
+    vectorized.  Single-base ins/del/sub events; returns
+    (seq_bytes, [(op, len)]) with op 0=M 1=I 2=D."""
+    seg = true[s:s + ref_span]
+    n = len(seg)
+    ins = rng.random(n) < p_ins  # insert one base before position i
+    dele = rng.random(n) < p_del
+    sub = (rng.random(n) < p_sub) & ~dele
+    out = seg.copy()
+    nsub = int(sub.sum())
+    if nsub:
+        out[sub] = rng.choice(bases, nsub)
+    # per position: optional I slot (random base), then an M/D slot
+    n_out = ins.astype(np.int64) + 1
+    off = np.cumsum(n_out) - n_out
+    total = int(n_out.sum())
+    seq = np.empty(total, dtype=np.uint8)
+    seq[off[ins]] = rng.choice(bases, int(ins.sum()))
+    seq[off + ins] = np.where(dele, 0, out)
+    ops = np.empty(total, dtype=np.uint8)
+    ops[off[ins]] = 1
+    ops[off + ins] = np.where(dele, 2, 0)
+    # deletions consume no query: drop their seq slots
+    qmask = np.ones(total, dtype=bool)
+    qmask[(off + ins)[dele]] = False
+    seq = seq[qmask]
+    # run-length encode ops
+    brk = np.flatnonzero(np.diff(ops.astype(np.int8)) != 0)
+    starts_r = np.concatenate([[0], brk + 1])
+    ends_r = np.concatenate([brk + 1, [len(ops)]])
+    cig = [(int(ops[a]), int(b - a)) for a, b in zip(starts_r, ends_r)]
+    return seq.tobytes(), cig
+
+
+def make_task1_case(rng, L=100_000, depth=40, read_len=150, n_contigs=12,
+                    clip_frac=0.02, p_indel=0.002, p_sub=0.01):
+    from .io.bam import AlnBatch, BamHeader
+    from .io.fasta import ASCII_TO_NIB
+
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    names = [f"ctg{i}" for i in range(n_contigs)]
+    header = BamHeader("", names, [L] * n_contigs)
+    trues = []
+    rows = []  # (tid, pos, seq, cigar)
+    per = depth * L // read_len
+    for i in range(n_contigs):
+        true = rng.choice(bases, L)
+        trues.append(true.tobytes())
+        starts = np.sort(rng.integers(0, L - read_len - 10, per))
+        # most reads are gapless (vectorized); a Poisson-sampled subset
+        # carries explicit insertion/deletion events so the engine's
+        # insert cells and mixed-CIGAR paths see real work
+        n_ev = rng.poisson(2 * p_indel * read_len, per)
+        gapless = n_ev == 0
+        seqs = true[starts[:, None] + np.arange(read_len)[None, :]].copy()
+        n_err = int(p_sub * seqs.size)
+        er = rng.integers(0, per, n_err)
+        ec = rng.integers(0, read_len, n_err)
+        seqs[er, ec] = rng.choice(bases, n_err)
+        base_cig = [(0, read_len)]
+        for j in range(per):  # emitted in sorted-position order
+            if gapless[j]:
+                rows.append((i, int(starts[j]), seqs[j].tobytes(),
+                             base_cig))
+                continue
+            seq, cig = _sim_read(rng, true, int(starts[j]), read_len,
+                                 bases, p_ins=p_indel, p_del=p_indel,
+                                 p_sub=p_sub)
+            if rng.random() < clip_frac:
+                extra = rng.choice(bases, 10).tobytes()
+                if rng.random() < 0.5:
+                    seq = extra + seq
+                    cig = [(4, 10)] + cig
+                else:
+                    seq = seq + extra
+                    cig = cig + [(4, 10)]
+            rows.append((i, int(starts[j]), seq, cig))
+    n = len(rows)
+    lq = np.array([len(r[2]) for r in rows], dtype=np.int32)
+    seq_off = np.concatenate([[0], np.cumsum(lq[:-1])]).astype(np.int64)
+    cig_arr = []
+    cig_off = []
+    off = 0
+    for _, _, _, cig in rows:
+        cig_off.append(off)
+        for op, ln in cig:
+            cig_arr.append((ln << 4) | op)
+        off += len(cig)
+    seqcat = np.frombuffer(b"".join(r[2] for r in rows), dtype=np.uint8)
+    batch = AlnBatch(
+        header=header,
+        tid=np.array([r[0] for r in rows], np.int32),
+        pos=np.array([r[1] for r in rows], np.int32),
+        mapq=np.full(n, 60, np.uint8),
+        flag=np.zeros(n, np.uint16),
+        tlen=np.where(np.arange(n) % 2 == 0, 300, -300).astype(np.int32),
+        lqseq=lq,
+        cigar=np.array(cig_arr, dtype=np.uint32),
+        cigar_off=np.array(cig_off, dtype=np.int64),
+        cigar_len=np.array([len(r[3]) for r in rows], np.int32),
+        seq=ASCII_TO_NIB[seqcat],
+        seq_off=seq_off,
+        qual=np.full(int(lq.sum()), 35, np.uint8),
+        qual_off=seq_off.copy(),
+        mtid=np.full(n, -1, np.int32),
+        mpos=np.full(n, -1, np.int32),
+    )
+    return names, trues, batch, n
+
+
+def make_task5_case(rng, L=50_000, n_contigs=8, depth=30, err=0.03):
+    from .align.index import GenomeIndex
+    from .align.longread import map_long_batch
+    from .align.mapper import records_to_batch
+
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    names, drafts, reads_all = [], [], []
+    for i in range(n_contigs):
+        true = rng.choice(bases, L)
+        # draft = lightly corrupted truth
+        d, _ = _sim_read(rng, true, 0, L, bases, 0.003, 0.003, 0.006)
+        names.append(f"ctg{i}")
+        drafts.append(d)
+        n_reads = depth * L // 3000
+        for _ in range(n_reads):
+            a = int(rng.integers(0, max(L - 4000, 1)))
+            b = min(a + int(rng.integers(2500, 4000)), L)
+            r, _ = _sim_read(rng, true, a, b - a, bases, err, err, err)
+            if rng.random() < 0.5:
+                r = r.translate(comp)[::-1]
+            reads_all.append((i, r))
+    idx = GenomeIndex.build(list(zip(names, drafts)), k=15, w=10)
+    # the fixture maps on the host: its caller's device work is the polish
+    recs = map_long_batch(idx, [r for _, r in reads_all], device="cpu")
+    batch = records_to_batch(recs, idx)
+    return names, drafts, batch

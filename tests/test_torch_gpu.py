@@ -4,7 +4,8 @@ winners; task 1's chain DP: the forward scan and the traceback), the
 pinned-buffer launch paths, the dense chain batch (task 2's no-depth
 rescue), task 1's window route against its single launch, task 1's
 reads-sharded route and engine 2's groups over [cuda:0, cuda:0], the
-mappers' banded DP and traceback (band_align, band_traceback) with a
+port's dry run over [cuda:0, cuda:0] and the stage profiler of task 1's
+DP, the mappers' banded DP and traceback (band_align, band_traceback) with a
 forced sub-batch split, engine calibration on the card, the planes DP at
 off-grid rates and task 3's small launches, and worker2 / worker1 -t 1
 / -t 2 / -t 3 / -t 4 / -t 5 / td_score_chain_contig / map_short_batch /
@@ -836,3 +837,55 @@ def test_two_ranks_cuda_match_one_process(tmp_path, cuda_device):
                 assert launches["level_chain"] > 0
         work.rename(tmp_path / f"work.{label}")
     assert out["two"] == out["one"]
+
+
+@pytest.mark.gpu
+def test_dryrun_over_two_entries_on_card_matches_cpu(cuda_device):
+    """The port's dry run over [cuda:0, cuda:0] (each route held to one
+    entry inside) writes the bytes and winners of the run over [cpu, cpu]
+    (the task-1 case's length follows the entries), and entry's choices
+    on the card equal those on the CPU; both run the chain and level
+    kernels."""
+    from nextpolish_tpu_torch import dryrun
+
+    before = (_chain_launches(), tls.level_chain.launches,
+              tls.level_winners.launches)
+    card = dryrun.dryrun_multichip(2, cuda_device)
+    assert _chain_launches()[0] > before[0][0]
+    assert _chain_launches()[1] > before[0][1]
+    assert tls.level_chain.launches > before[1]
+    assert tls.level_winners.launches > before[2]
+    cpu = dryrun.dryrun_multichip(2, "cpu")
+    assert card["task1"] == cpu["task1"] and card["windows"] == 2
+    for (bc, sc), (bp, sp) in zip(card["task5"], cpu["task5"]):
+        assert np.array_equal(bc, bp) and np.array_equal(sc, sp)
+    fn, args = dryrun.entry(cuda_device)
+    fc, ac = dryrun.entry("cpu")
+    assert torch.equal(fn(*args).cpu(), fc(*ac))
+
+
+@pytest.mark.gpu
+def test_stage_profiler_on_card(cuda_device):
+    """The stage profiler at a small length on the card: every chain.*
+    stage has device time, the seven stages hold 95% of the whole or
+    more (a kernel the attribution misses goes to `other`), the hand
+    kernels sit in their stages, and the profiled bytes equal the
+    CPU's."""
+    from nextpolish_tpu_torch import profile_chain as pc
+
+    bufs, key = pc.build_case(20_000, cuda_device)
+    report, got = pc.profile_stages(bufs, key, cuda_device)
+    stages, whole = report["stages"], report["whole_ms"]
+    assert whole > 0
+    for s in pc.STAGES:
+        assert stages[s]["ms"] > 0, s
+    assert sum(stages[s]["ms"] for s in pc.STAGES) >= 0.95 * whole
+    assert any("fwd_" in n for n in stages["chain.forward"]["kernels"])
+    assert any("tb_" in n for n in stages["chain.traceback"]["kernels"])
+    for s, v in stages.items():
+        for n in v["kernels"]:
+            assert not ("fwd_" in n and s != "chain.forward"), (s, n)
+            assert not ("tb_" in n and s != "chain.traceback"), (s, n)
+    cpu = tch.chain_correct_planes_batch(
+        torch.from_numpy(bufs.view(np.int16)), *key).numpy()
+    assert np.array_equal(got, cpu)

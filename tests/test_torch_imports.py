@@ -3,8 +3,9 @@
 them), and the CPU slices (worker2 and its level scan over two device
 entries, worker1 -t 1 and task 1's router and round-robin over two
 device entries, then -t 2 on its output, worker1 -t 3, -t 4 on its
-output and -t 5, td_score_chain_contig, and the run.cfg pipeline through
-`python -m nextpolish_tpu_torch`) run end to end, and the launcher parses
+output and -t 5, td_score_chain_contig, the run.cfg pipeline through
+`python -m nextpolish_tpu_torch`, seq_count, the dry run over two device
+entries and the stage profiler) run end to end, and the launcher parses
 its arguments and splits the cards (launch.main, launch.rank_cards,
 parallel.hosts), with `jax` and `nextpolish_tpu` made unimportable in the
 process."""
@@ -112,6 +113,25 @@ with tempfile.TemporaryDirectory() as d:
     asm = open(os.path.join(proj, "work", "genome.nextpolish.fasta"),
                "rb").read().split(b"\n")
     assert [len(x) for x in asm[1::2]] == [len(x) for x in lines[1::2]]
+# the read-set utilities, the dry run over two device entries and the
+# stage profiler of task 1's DP
+import contextlib, io, torch
+from nextpolish_tpu_torch import dryrun, profile_chain, seq_count
+# many small torch ops (the plain level scan): one thread keeps a loaded
+# host from stalling them
+torch.set_num_threads(1)
+said = io.StringIO()
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(said):
+    fa = os.path.join(d, "r.fa")
+    with open(fa, "w") as fh:
+        fh.write(">r0\n" + "ACGT" * 500 + "\n>r1\n" + "TTGA" * 300 + "\n")
+    assert seq_count.main(["-g", "10k", fa]) == 0
+    res = dryrun.dryrun_multichip(2, "cpu")
+assert "N50" in said.getvalue() and "dryrun_multichip OK" in said.getvalue()
+assert res["bases"] >= 1024 and res["windows"] == 2
+bufs, key = profile_chain.build_case(3000, "cpu")
+report, _ = profile_chain.profile_stages(bufs, key, "cpu")
+assert all(report["stages"][s]["ms"] > 0 for s in profile_chain.STAGES)
 # the launcher's arguments and the process protocol, one process here
 from nextpolish_tpu_torch import launch
 from nextpolish_tpu_torch.parallel import hosts
