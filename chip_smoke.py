@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (nextpolish_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 1] [--contigs 4] [--phases 1,2,...,11]
+    python3 chip_smoke.py [--seed 1] [--contigs 4] [--phases 1,2,...,12]
 
 Phases (any failed check exits non-zero; nothing is caught):
   1. build   the engine-2 level-scan kernels (nvcc, sm_90a: the chain and
@@ -147,7 +147,7 @@ Phases (any failed check exits non-zero; nothing is caught):
              before and after task 4, differences to hap1 and hap2;
   9. main    several processes: one run.cfg (task = 5,1, engine 2 on the
              card through NPT_CNS_ENGINE=device) on three contigs cut from
-             phase 7(b)'s chromosome (105,000, 50,000 and 45,000 bp, so
+             phase 7(b)'s chromosome (52,500, 25,000 and 22,500 bp, so
              blc_genome gives rank 0 the first and rank 1 the others),
              phase 5's PE150 reads of them and 30x long reads (phase 7(b)'s
              depths), run as one process in this one (`python -m
@@ -197,14 +197,43 @@ Phases (any failed check exits non-zero; nothing is caught):
              chain_traceback, level_chain, level_winners) must have been
              launched, and every launch is held against its plain
              version; printed: the wall and the launches, which the
-             kernels line lists under the path `phase 11: dryrun`.
+             kernels line lists under the path `phase 11: dryrun`;
+ 12. main    the read types past ONT end to end, needing no earlier
+             phase: (a) worker2 -r hifi --device cuda on two 300,000 bp
+             contigs at 30x with sim.PROFILES["hifi"] (10-20 kb reads,
+             0.2% each of substitutions, insertions and deletions), once
+             with NPT_CNS_ENGINE=device, every launch recorded, and once
+             with NPT_CNS_ENGINE=native: the FASTA byte-equal, both level
+             kernels launched, each recorded launch's windows cut to
+             their first 16,384 levels held to the plain versions;
+             printed: both walls, bases/s, the cns.* spans, the windows
+             densify refused (cns.windows_host), the launches and the
+             differences to the truth before and after; (b) the same for
+             -r clr and -r rs on one BAM (a 120,000 bp contig at 20x with
+             sim.PROFILES["clr"]: 3-12 kb reads, 2% substitutions, 8%
+             insertions, 4% deletions); (c) `python -m
+             nextpolish_tpu_torch run.cfg --device cuda`, task = best
+             with only hifi_fofn (6, 6), on 60,000 + 40,000 bp with 30x
+             HiFi reads as FASTA.gz, through the spill path
+             (NPT_SPILL_BAM=1, the read chunk lowered in-process to 64
+             reads so that several parts merge) and the device engine,
+             against the same project --device cpu in memory (native
+             engine): the FASTA and .stat byte-equal, spilled parts in
+             spill.hifi, band_align, band_traceback, level_chain and
+             level_winners launched, every aligner launch re-run through
+             the plain versions, every engine-2 launch held as in (a).
+             Calib's pick is printed as information only: it probes ONT
+             windows for every read type (models/cns/window.py:281, as
+             the JAX package does).  The kernels line lists the launches
+             under `phase 12: ...` paths.
 
 Cuts, all of scale, none of shape: phase 3's number of contigs
 (--contigs, 4 by default: 8 before the aligner's phase); phase 3's
 plain check of a whole window became its first 100,000 levels, phase
 9's of each window its first 16,384 (the plain chain takes about 0.2 ms
 a level on the H100); phase 9's genome is cut from 400,000 to 200,000
-bp (the script passed 1,050 s on a slow host); phase 7(b)'s
+bp (the script passed 1,050 s on a slow host), and to 100,000 bp when
+phase 12 came (the script took 1,077 s on a slow host); phase 7(b)'s
 chromosome is cut to 1,000,000 bp (the host half of the mapper, about
 0.2 ms a short read, would need about 500 s for the whole genome's two
 short-read rounds).  Not a cut but time given back: phase 5's simulation
@@ -218,6 +247,10 @@ contig: a contig past the real cap needs about 10 M reads, which this
 script's time limit cannot simulate); phase 8's heterozygous chromosome
 is cut to 600,000 bp (1,000,000 took the phase 193.6 s, past the 150 s
 it may take; its het rate, holes and depths are not cut).
+Phase 12 is not cut (its sizes were chosen to keep it under a minute).
+Not a cut but time given back: the engine-2 holds of phases 9 and 12
+pack a run's cut windows, up to 8 at a time, into one batch, whose
+windows the plain versions' loop over levels runs side by side.
 --phases runs a subset (the build always runs; 6, 7, 9 and 10 need 5).
 
 The last three lines are the kernels' JSON record (the level scan's two
@@ -277,6 +310,9 @@ WINDOW_LEVELS = 100_000  # phase 3's plain check of one window's prefix
 # task 1's main path: a chromosome and two plasmids, PE150 at 40x
 TASK1_CONTIGS = (4_600_000, 100_000, 50_000)
 TASK1_DEPTH = 40
+# engine 2's trace spans, as phases 3 and 12 print them
+CNS_SPANS = ("cns.fetch", "cns.prep", "cns.densify", "cns.dp", "cns.kernel",
+             "cns.finish", "cns.host")
 # worst kernel-vs-plain difference seen, per kernel, over every check
 ERR = dict.fromkeys(KERNELS + tuple(CHAIN_KERNELS) + tuple(BAND_KERNELS), 0)
 
@@ -651,9 +687,7 @@ def main_path(tmp, dev, args):
         snap = trace.snapshot("cns")
         log(f"main: one {CONTIG_LEN} bp contig alone, {eng} engine: wall "
             f"{one_wall:.2f} s; " + ", ".join(
-                f"{k} {got(k):.3f} s" for k in (
-                    "cns.fetch", "cns.prep", "cns.densify", "cns.dp",
-                    "cns.kernel", "cns.finish", "cns.host")))
+                f"{k} {got(k):.3f} s" for k in CNS_SPANS))
     os.environ.pop("NPT_CNS_ENGINE")
     check(open(outs[0], "rb").read() == open(outs[1], "rb").read(),
           "one-contig device and native FASTA differ")
@@ -1704,6 +1738,20 @@ def replay_band(cap, dev):
     return len(done), len(cap.calls), len(seen)
 
 
+def truth_lines(names, truths, rounds) -> list:
+    """Each contig's differences to the truth after each of `rounds`
+    ((stage, {name: seq}) pairs), a line a contig."""
+    lines = []
+    for name, truth in zip(names, truths):
+        diffs = []
+        for stage, seqs in rounds:
+            check(name in seqs, f"{name} missing after {stage}")
+            diffs.append(f"{stage} {differences(truth, seqs[name])}")
+        lines.append(f"{name} ({len(truth)} bp): differences to the truth "
+                     + ", ".join(diffs))
+    return lines
+
+
 def read_fasta(path) -> dict:
     out, name = {}, None
     for line in open(path, "rb").read().split(b"\n"):
@@ -1815,13 +1863,8 @@ def pipeline_main_path(tmp, dev, args, ctx):
         rounds.append((stage, read_fasta(os.path.join(
             work, f"{step:02d}.{stage}", "genome.nextpolish.part.fasta"))))
     check(asm == rounds[-1][1], "the assembly differs from the last round")
-    for name, truth in zip(names, truths):
-        diffs = []
-        for stage, seqs in rounds:
-            check(name in seqs, f"{name} missing after {stage}")
-            diffs.append(f"{stage} {differences(truth, seqs[name])}")
-        log(f"pipeline: {name} ({len(truth)} bp): differences to the truth "
-            + ", ".join(diffs))
+    for line in truth_lines(names, truths, rounds):
+        log(f"pipeline: {line}")
 
     # the chain scans and the aligner's launches again through the plain
     # versions
@@ -2055,9 +2098,9 @@ def snp_main_path(tmp, dev, args):
 # phase 9: several processes (launch.py, parallel/hosts.py), two ranks
 # ---------------------------------------------------------------------------
 
-# three contigs cut from phase 7(b)'s chromosome (its first 200,000 bp),
+# three contigs cut from phase 7(b)'s chromosome (its first 100,000 bp),
 # sized so that blc_genome gives rank 0 the first and rank 1 the others
-MULTI_PIECES = ((0, 105_000), (105_000, 155_000), (155_000, 200_000))
+MULTI_PIECES = ((0, 52_500), (52_500, 77_500), (77_500, 100_000))
 HOLD_LEVELS = 16_384  # phase 9's plain check of each engine-2 window
 TIME_LINE = re.compile(r"TIME (\S+) wall=([\d.]+)s")
 
@@ -2090,47 +2133,57 @@ class capture_levels:
 
 
 def hold_levels(cap, dev, label):
-    """Each recorded launch's windows, cut to their first HOLD_LEVELS
-    levels (a prefix of the level scan is the scan of the prefix), through
-    the plain versions on the card: equal to both kernels on the prefix
-    alone and to the recorded launch's winners over it.  Returns the
-    levels held."""
+    """Every recorded launch's windows, cut to their first HOLD_LEVELS
+    levels (a prefix of the level scan is the scan of the prefix) and
+    packed B_MAX at a time into batches of one read type's rules, through
+    the plain versions on the card (whose loop over levels runs a batch's
+    windows side by side): equal to both kernels on the cut batch and,
+    window by window, to its launch's winners over the prefix.  Returns
+    the levels held."""
     import torch
 
     from nextpolish_tpu_torch.models.cns import level_scan as ls
     from nextpolish_tpu_torch.models.cns.device_dp import (
+        B_MAX,
         READ_TYPE_ID,
         pack_batch,
     )
     from nextpolish_tpu_torch.models.cns.dp import COV_COEF
 
-    held = 0
+    by_rules = {}
     for g, (dws, rt, cov, pend) in enumerate(cap.groups):
-        rt_id = READ_TYPE_ID[rt]
-        c = COV_COEF[rt] if cov is None else cov
         pend.done.synchronize()
-        for i, dw in enumerate(dws):
-            cut = truncate(dw, HOLD_LEVELS)
-            one = pack_batch([cut]).to(dev)  # every level's scores kept
+        c = COV_COEF[rt] if cov is None else cov
+        by_rules.setdefault((rt, c), []).extend(
+            (g, i, truncate(dw, HOLD_LEVELS), pend) for i, dw in enumerate(dws))
+    held = 0
+    for (rt, c), wins in by_rules.items():
+        rt_id = READ_TYPE_ID[rt]
+        for b0 in range(0, len(wins), B_MAX):
+            part = wins[b0:b0 + B_MAX]
+            one = pack_batch([cut for _, _, cut, _ in part]).to(dev)
             ki = ls.level_chain(one, rt_id, c)
             kb, ks = ls.level_winners(one, ki, rt_id)
             pi = ls.level_chain_plain(one, rt_id, c)
             pb, ps = ls.level_winners_plain(one, pi, rt_id)
-            lb, nl = int(pend.win[i, 0]), cut.n_levels
-            launched = pend.best[lb:lb + nl].to(dev)
+            win_pairs = [(kb, pb), (ks, ps)]
+            for k, (g, i, cut, pend) in enumerate(part):
+                lb, cb = int(pend.win[i, 0]), int(one.win_host[k, 0])
+                nl = cut.n_levels
+                win_pairs.append((pend.best[lb:lb + nl].to(dev),
+                                  pb[cb:cb + nl]))
+                held += nl
             torch.cuda.synchronize(dev)
-            win_pairs = [(kb, pb), (ks, ps), (launched, pb)]
             e_chain, e_win = max_err([(ki, pi)]), max_err(win_pairs)
             ERR["level_chain"] = max(ERR["level_chain"], e_chain)
             ERR["level_winners"] = max(ERR["level_winners"], e_win)
+            where = (f"{label}, {rt}, launches "
+                     f"{sorted({g for g, _, _, _ in part})}")
             check(e_chain == 0 and torch.equal(ki, pi),
-                  f"level_chain kernel != plain ({label}, launch {g}, "
-                  f"window {i})")
+                  f"level_chain kernel != plain ({where})")
             check(e_win == 0 and all(torch.equal(a, b)
                                      for a, b in win_pairs),
-                  f"level_winners kernel != plain ({label}, launch {g}, "
-                  f"window {i})")
-            held += nl
+                  f"level_winners kernel != plain ({where})")
     return held
 
 
@@ -2544,6 +2597,212 @@ def dryrun_main_path(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: HiFi polishing (task 6) and the CLR/RS read types end to end
+# ---------------------------------------------------------------------------
+
+HIFI_CONTIGS = (300_000, 300_000)  # phase 12(a), HiFi reads at 30x
+HIFI_DEPTH = 30
+CLR_CONTIG = 120_000  # phase 12(b), CLR/RS reads at 20x
+CLR_DEPTH = 20
+HIFI_PIPE_CONTIGS = (60_000, 40_000)  # phase 12(c), HiFi reads at 30x
+SPILL_CHUNK_READS = 64  # phase 12(c)'s lowered read chunk: several parts
+
+
+def engines_on_card(fa, bam, dev, case, rt):
+    """worker2 -r rt --device cuda on case's draft and BAM, with the device
+    engine (every launch recorded and held to the plain versions) and
+    with the native engine: the FASTA byte-equal, both level kernels
+    launched.  Returns the level kernels' launches of the device run."""
+    import torch
+
+    from nextpolish_tpu_torch import worker2
+    from nextpolish_tpu_torch.models.cns import level_scan as ls
+    from nextpolish_tpu_torch.runtime import trace
+
+    outs, walls = {}, {}
+    for eng in ("device", "native"):
+        out = os.path.join(os.path.dirname(fa), f"{rt}_{eng}.fa")
+        os.environ["NPT_CNS_ENGINE"] = eng
+        trace.reset()
+        ls.level_chain.launches = ls.level_winners.launches = 0
+        try:
+            with capture_levels() as cap:
+                t0 = time.perf_counter()
+                rc = worker2.main(["-g", fa, "-l", bam, "-r", rt, "-o", out,
+                                   "--device", "cuda"])
+                torch.cuda.synchronize(dev)
+                walls[eng] = time.perf_counter() - t0
+        finally:
+            os.environ.pop("NPT_CNS_ENGINE")
+        check(rc == 0, f"worker2 -r {rt} ({eng} engine) returned {rc}")
+        outs[eng] = open(out, "rb").read()
+        if eng == "device":
+            launches = {k: getattr(ls, k).launches for k in KERNELS}
+            snap, groups = trace.snapshot("cns"), cap
+
+    def got(key):
+        return snap.get(key, {}).get("s", 0)
+
+    for k in KERNELS:
+        check(launches[k] > 0, f"worker2 -r {rt} launched {k} no time")
+    check(len(groups.groups) == launches["level_chain"],
+          f"-r {rt}: engine-2 launches and recorded groups differ")
+    same = outs["device"] == outs["native"]
+    polished = read_fasta(out)
+    n_pol = sum(map(len, polished.values()))
+    log(f"{rt}: worker2 -r {rt} --device cuda on {len(case.names)} x "
+        f"{len(case.drafts[0])} bp, {len(case.records)} reads: device engine "
+        f"{walls['device']:.2f} s ({n_pol / walls['device']:.0f} bases/s), "
+        f"native {walls['native']:.2f} s ({n_pol / walls['native']:.0f} "
+        f"bases/s); FASTA {'byte-equal' if same else 'DIFFERENT'}; launches "
+        f"{launches}, windows to the kernel {int(got('cns.windows'))}, "
+        f"windows densify refused (cns.windows_host) "
+        f"{int(got('cns.windows_host'))}, levels {int(got('cns.levels'))}")
+    log(f"{rt}: device engine spans (thread-summed): " + ", ".join(
+        f"{k} {got(k):.3f} s" for k in CNS_SPANS))
+    check(same, f"worker2 -r {rt}: the device engine's FASTA differs from "
+          "the native engine's")
+    for line in truth_lines(case.names, case.truths,
+                            [("draft", dict(zip(case.names, case.drafts))),
+                             ("polished", polished)]):
+        log(f"{rt}: {line}")
+    t0 = time.perf_counter()
+    held = hold_levels(groups, dev, f"worker2 -r {rt}")
+    log(f"{rt}: {len(groups.groups)} engine-2 launches "
+        f"({[len(g[0]) for g in groups.groups]} windows), each window's "
+        f"first {HOLD_LEVELS} levels ({held} in all) equal to the plain "
+        f"versions, both kernels and the launch's winners "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def hifi_pipeline(tmp, dev, args):
+    """Phase 12(c): python -m nextpolish_tpu_torch run.cfg --device cuda,
+    task = best with only HiFi reads (6, 6), through the spill path and
+    the device engine, against the same project --device cpu in memory.
+    Returns the launches of the card's run."""
+    import torch
+
+    from nextpolish_tpu_torch import __main__ as cli
+    from nextpolish_tpu_torch import pipeline as tpipe
+    from nextpolish_tpu_torch import sim
+    from nextpolish_tpu_torch.align import extend as text
+    from nextpolish_tpu_torch.models.cns import level_scan as ls
+
+    case = sim.simulate_case(args.seed + 12, len(HIFI_PIPE_CONTIGS),
+                             HIFI_PIPE_CONTIGS, HIFI_DEPTH,
+                             **sim.PROFILES["hifi"])
+    cfgs = {dv: sim.write_project(os.path.join(tmp, "hifi_pipe", dv),
+                                  case.names, case.drafts, "best",
+                                  hifi=case.records)
+            for dv in ("cuda", "cpu")}
+    log(f"hifi pipeline: {sum(HIFI_PIPE_CONTIGS)} bp in "
+        f"{len(case.names)} contigs, {len(case.records)} HiFi reads "
+        f"({HIFI_DEPTH}x) as hifi.fa.gz, task = best (6, 6)")
+    zero_chain_launches()
+    for fn in (ls.level_chain, ls.level_winners, text.band_align_core,
+               text.band_traceback):
+        fn.launches = 0
+    chunk = tpipe.Pipeline.CHUNK_READS
+    tpipe.Pipeline.CHUNK_READS = SPILL_CHUNK_READS
+    os.environ.update(NPT_SPILL_BAM="1", NPT_CNS_ENGINE="device")
+    try:
+        with capture_band() as cap, capture_levels() as cap_lv:
+            t0 = time.perf_counter()
+            rc = cli.main([cfgs["cuda"], "--device", "cuda"])
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+    finally:
+        tpipe.Pipeline.CHUNK_READS = chunk
+        os.environ.pop("NPT_CNS_ENGINE")
+        os.environ["NPT_SPILL_BAM"] = "0"
+    launches = cli.kernel_launches()
+    check(rc == 0, f"the HiFi run.cfg --device cuda returned {rc}")
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main([cfgs["cpu"], "--device", "cpu"])
+        cpu_wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("NPT_SPILL_BAM")
+    check(rc == 0, f"the HiFi run.cfg --device cpu returned {rc}")
+    works = {dv: os.path.join(os.path.dirname(c), "work")
+             for dv, c in cfgs.items()}
+    for f in ("genome.nextpolish.fasta", "genome.nextpolish.fasta.stat"):
+        a, b = (open(os.path.join(works[dv], f), "rb").read()
+                for dv in ("cuda", "cpu"))
+        check(len(a) > 0 and a == b, f"the HiFi pipeline's {f} differs "
+              "between --device cuda (spilled) and --device cpu")
+    spill = os.path.join(works["cuda"], "spill.hifi")
+    parts = sorted(f for f in (os.listdir(spill) if os.path.isdir(spill)
+                               else []) if f.endswith(".bam"))
+    check(len(parts) >= 2, f"spilled HiFi parts {parts}")
+    check(not os.path.exists(os.path.join(works["cpu"], "spill.hifi")),
+          "the --device cpu run spilled")
+    for k in ("band_align", "band_traceback", "level_chain",
+              "level_winners"):
+        check(launches[k] > 0, f"the HiFi pipeline launched {k} no time")
+    check(launches["band_align"] == len(cap.calls),
+          "aligner launches and recorded calls differ")
+    check(launches["level_chain"] == len(cap_lv.groups),
+          "engine-2 launches and recorded groups differ")
+    rounds = [("draft", dict(zip(case.names, case.drafts)))] + [
+        (f"round {step}", read_fasta(os.path.join(
+            works["cuda"], f"{step:02d}.hifi_polish",
+            "genome.nextpolish.part.fasta"))) for step in (1, 2)]
+    log(f"hifi pipeline: --device cuda (spilled, device engine) "
+        f"{wall:.2f} s, --device cpu (in memory, native engine) "
+        f"{cpu_wall:.2f} s; FASTA and .stat byte-equal; {len(parts)} "
+        f"spilled parts of {SPILL_CHUNK_READS} reads in spill.hifi; "
+        f"launches {launches}")
+    for line in truth_lines(case.names, case.truths, rounds):
+        log(f"hifi pipeline: {line}")
+    t0 = time.perf_counter()
+    n_done, n_all, n_shapes = replay_band(cap, dev)
+    check(n_done == n_all, f"only {n_done} of {n_all} aligner launches "
+          "re-run")
+    held = hold_levels(cap_lv, dev, "hifi pipeline")
+    log(f"hifi pipeline: {n_done} aligner launches ({n_shapes} (mode, R, B) "
+        f"shapes) and {len(cap_lv.groups)} engine-2 launches (each "
+        f"window's first {HOLD_LEVELS} levels, {held} in all) equal to "
+        f"the plain versions ({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def read_types_main_path(tmp, dev, args):
+    """Phase 12: (a) worker2 -r hifi, (b) worker2 -r clr and -r rs on one
+    BAM, (c) the HiFi run.cfg pipeline, all --device cuda.  Returns the
+    launches by path."""
+    from nextpolish_tpu_torch import sim
+
+    pick = calib_pick(dev)
+    log(f"read types: calib's pick {pick['engine']}, information only: "
+        "calib probes ONT windows for every read type "
+        "(models/cns/window.py:281, as in the JAX package)")
+    by_path = {}
+    t0 = time.perf_counter()
+    case = sim.simulate_case(args.seed + 13, len(HIFI_CONTIGS), HIFI_CONTIGS,
+                             HIFI_DEPTH, **sim.PROFILES["hifi"])
+    fa, bam = sim.write_case(case, os.path.join(tmp, "hifi"))
+    log(f"hifi: simulated {len(case.records)} HiFi reads "
+        f"({time.perf_counter() - t0:.1f} s)")
+    by_path["phase 12: worker2 -r hifi"] = engines_on_card(fa, bam, dev,
+                                                           case, "hifi")
+    del case
+    t0 = time.perf_counter()
+    case = sim.simulate_case(args.seed + 14, 1, CLR_CONTIG, CLR_DEPTH,
+                             **sim.PROFILES["clr"])
+    fa, bam = sim.write_case(case, os.path.join(tmp, "clr"))
+    log(f"clr/rs: simulated {len(case.records)} CLR/RS reads "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for rt in ("clr", "rs"):
+        by_path[f"phase 12: worker2 -r {rt}"] = engines_on_card(
+            fa, bam, dev, case, rt)
+    by_path["phase 12: run.cfg task 6, 6 through the spill path"] = \
+        hifi_pipeline(tmp, dev, args)
+    return by_path
+
+
 def band_records(launches, timed_shapes, checks):
     """The aligner kernels' entries of the kernels line: the times of the
     main path's short-read launch, the other shapes beside them."""
@@ -2580,7 +2839,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--contigs", type=int, default=4)
-    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    p.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                    help="phases to run (the build always runs; 6, 7, 9 "
                         "and 10 need 5)")
     args = p.parse_args(argv)
@@ -2705,6 +2964,17 @@ def main(argv=None) -> int:
                 by["phase 11: dryrun"] = launches.get(k, 0)
                 rec["launches"] += launches.get(k, 0)
             log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+        if 12 in phases:
+            t0 = time.perf_counter()
+            by_path = read_types_main_path(tmp, dev, args)
+            for rec in recs:
+                k = rec["name"]
+                by = rec.setdefault("launches_by_path",
+                                    {"main": rec["launches"]})
+                for path, n in by_path.items():
+                    by[path] = n.get(k, 0)
+                    rec["launches"] += n.get(k, 0)
+            log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,8 +1,9 @@
 """Polishing cases with alignments known by construction: long reads
-(`simulate_case`), paired-end short reads (`simulate_short_case`) and a
-diploid genome with both (`simulate_diploid_case`), as a
-BAM (`write_case`) or as the read files of a run.cfg project
-(`write_reads`); random sparse pileups for the chain DP alone
+(`simulate_case`, error profiles per read type in `PROFILES`),
+paired-end short reads (`simulate_short_case`) and a diploid genome
+with both (`simulate_diploid_case`), as a BAM (`write_case`), as the
+read files of a run.cfg project (`write_reads`) or as the project
+itself (`write_project`); random sparse pileups for the chain DP alone
 (`random_pileup`); inputs of the mappers' banded DP alone
 (`band_case`); and the benchmark workloads of the repo's bench.py
 (`make_task1_case`, an AlnBatch in memory; `make_task5_case`, long reads
@@ -31,6 +32,18 @@ from .io import bam as bamio
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 OP_M, OP_I, OP_D = 0, 1, 2
+
+# long-read error profiles per read type (per truth base: substitution,
+# insertion and deletion rates) with their read lengths, as keyword
+# arguments of simulate_case and long_reads: ONT as both draw by default;
+# HiFi near-exact and long; CLR and RS indel-heavy, as those chemistries
+# are
+PROFILES = {
+    "ont": dict(sub=0.03, ins=0.03, dele=0.03, read_len=(3000, 12000)),
+    "hifi": dict(sub=0.002, ins=0.002, dele=0.002, read_len=(10000, 20000)),
+    "clr": dict(sub=0.02, ins=0.08, dele=0.04, read_len=(3000, 12000)),
+    "rs": dict(sub=0.02, ins=0.08, dele=0.04, read_len=(3000, 12000)),
+}
 
 
 @dataclass
@@ -399,11 +412,16 @@ def write_reads(records: list, paths: list, fastq: bool = True) -> None:
 
 
 def write_project(outdir: str, names: list, drafts: list, task: str,
-                  sgs: list | None = None, lgs: list | None = None) -> str:
+                  sgs: list | None = None, lgs: list | None = None,
+                  hifi: list | None = None, hifi_options: str | None = None,
+                  extra=()) -> str:
     """A run.cfg project in `outdir`: draft.fa, the paired short reads
-    `sgs` as r1/r2.fq.gz and the long reads `lgs` as lgs.fa.gz (record
-    dicts, see write_reads) with their fofns, and run.cfg with `task`
-    and workdir ./work.  Returns the path of run.cfg."""
+    `sgs` as r1/r2.fq.gz, the long reads `lgs` as lgs.fa.gz and the HiFi
+    reads `hifi` as hifi.fa.gz (record dicts, see write_reads) with their
+    fofns, and run.cfg with `task`, workdir ./work, `hifi_options` when
+    given and the free-form lines `extra` (such as
+    ``lgs_minimap2_options = -x map-pb``) last.  Returns the path of
+    run.cfg."""
     os.makedirs(outdir, exist_ok=True)
     with open(os.path.join(outdir, "draft.fa"), "wb") as fh:
         for name, seq in zip(names, drafts):
@@ -415,11 +433,17 @@ def write_project(outdir: str, names: list, drafts: list, task: str,
         with open(os.path.join(outdir, "sgs.fofn"), "w") as fh:
             fh.write("r1.fq.gz\nr2.fq.gz\n")
         cfg.append("sgs_fofn = ./sgs.fofn")
-    if lgs is not None:
-        write_reads(lgs, [os.path.join(outdir, "lgs.fa.gz")], fastq=False)
-        with open(os.path.join(outdir, "lgs.fofn"), "w") as fh:
-            fh.write("lgs.fa.gz\n")
-        cfg.append("lgs_fofn = ./lgs.fofn")
+    for kind, recs in (("lgs", lgs), ("hifi", hifi)):
+        if recs is None:
+            continue
+        write_reads(recs, [os.path.join(outdir, f"{kind}.fa.gz")],
+                    fastq=False)
+        with open(os.path.join(outdir, f"{kind}.fofn"), "w") as fh:
+            fh.write(f"{kind}.fa.gz\n")
+        cfg.append(f"{kind}_fofn = ./{kind}.fofn")
+    if hifi_options is not None:
+        cfg.append(f"hifi_options = {hifi_options}")
+    cfg += list(extra)
     path = os.path.join(outdir, "run.cfg")
     with open(path, "w") as fh:
         fh.write("\n".join(cfg) + "\n")

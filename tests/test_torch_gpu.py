@@ -9,8 +9,8 @@ DP, the mappers' banded DP and traceback (band_align, band_traceback) with a
 forced sub-batch split, engine calibration on the card, the planes DP at
 off-grid rates and task 3's small launches, and worker2 / worker1 -t 1
 / -t 2 / -t 3 / -t 4 / -t 5 / td_score_chain_contig / map_short_batch /
-the run.cfg pipeline (task 12, 5 and 1,2,3,4) --device cuda against
---device cpu.
+the run.cfg pipeline (task 12, 5 and 1,2,3,4; task 6 and 1,2,3,4 through
+the spill path) --device cuda against --device cpu.
 
 Every test here is marked `gpu` and skips without a card; whether a card
 is there is decided in a fixture, at run time.  The file imports nothing
@@ -731,12 +731,23 @@ def test_map_short_batch_cuda_matches_cpu(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("project", ["task12", "task5", "task1234"])
-def test_run_cfg_cuda_matches_cpu(tmp_path, cuda_device, project):
+@pytest.mark.parametrize("project", ["task12", "task5", "task1234",
+                                     "task6_hifi_spill",
+                                     "task1234_diploid_spill"])
+def test_run_cfg_cuda_matches_cpu(tmp_path, cuda_device, project,
+                                  monkeypatch):
     """python -m nextpolish_tpu_torch run.cfg --device cuda writes the
-    --device cpu run's genome.nextpolish.fasta and .stat."""
+    --device cpu run's genome.nextpolish.fasta and .stat.  The _spill
+    projects run --device cuda through the spill path (NPT_SPILL_BAM=1,
+    the read chunks lowered so that several parts merge) and --device
+    cpu in memory: task = best with only HiFi reads (6, 6) on engine 2's
+    device route, and tests/test_torch_pipeline.py's diploid task =
+    1,2,3,4 project (short and long reads spilled, tasks 3 and 4 on
+    spilled parts)."""
+    from nextpolish_tpu_torch import pipeline as tpipe
     from nextpolish_tpu_torch.__main__ import main
 
+    spill_chunk, spilled = None, ()
     if project == "task12":
         case = sim.simulate_short_case(53, [15000, 4000], 30)
         kw = dict(task="12", sgs=case.records)
@@ -744,22 +755,41 @@ def test_run_cfg_cuda_matches_cpu(tmp_path, cuda_device, project):
         case = sim.simulate_diploid_case(57, [15000, 4000], 40, 0.001, 2,
                                          400, long_depth=30)
         kw = dict(task="1,2,3,4", sgs=case.records, lgs=case.long_records)
+    elif project == "task6_hifi_spill":
+        case = sim.simulate_case(41, 2, [4000, 3000], 15,
+                                 read_len=(500, 5000), sub=0.002, ins=0.002,
+                                 dele=0.002)
+        kw = dict(task="best", hifi=case.records,
+                  hifi_options="-min_read_len 1k -max_depth 100")
+        spill_chunk, spilled = 16, ("spill.hifi",)
+        monkeypatch.setenv("NPT_CNS_ENGINE", "device")
+    elif project == "task1234_diploid_spill":
+        case = sim.simulate_diploid_case(9, [8000], 40, 0.001, 2, 400,
+                                         long_depth=30)
+        kw = dict(task="1,2,3,4", sgs=case.records, lgs=case.long_records)
+        spill_chunk, spilled = 512, ("spill.sgs",)
     else:
         case = sim.simulate_case(55, 2, [9000, 5000], 15,
                                  read_len=(1500, 4000))
         kw = dict(task="5", lgs=case.records)
     out = {}
     for dev in ("cuda", "cpu"):
+        if spill_chunk is not None:
+            spill = dev == "cuda"
+            monkeypatch.setenv("NPT_SPILL_BAM", "1" if spill else "0")
+            monkeypatch.setattr(tpipe.Pipeline, "CHUNK_READS",
+                                spill_chunk if spill else 200_000)
         cfg = sim.write_project(str(tmp_path / dev), case.names,
                                 case.drafts, **kw)
         before = _band_launches()
         assert main([cfg, "--device", dev]) == 0
+        work = tmp_path / dev / "work"
         if dev == "cuda":
             assert _band_launches()[0] > before[0]
-        asm = tmp_path / dev / "work" / "genome.nextpolish.fasta"
-        out[dev] = (asm.read_bytes(),
-                    (tmp_path / dev / "work" /
-                     "genome.nextpolish.fasta.stat").read_bytes())
+            for d in spilled:
+                assert len(list((work / d).glob("part*.bam"))) >= 2, d
+        out[dev] = ((work / "genome.nextpolish.fasta").read_bytes(),
+                    (work / "genome.nextpolish.fasta.stat").read_bytes())
     assert out["cuda"] == out["cpu"]
 
 

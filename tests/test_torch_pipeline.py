@@ -2,8 +2,11 @@
 cpu) against the JAX package's: genome.nextpolish.fasta and its .stat
 byte-equal for task 12 on tests/test_pipeline.py's project (6 kb, 40x
 PE150), for task 5 on a small long-read project (two contigs, about
-15x ONT-like reads from nextpolish_tpu_torch.sim) and for task 1,2,3,4
-on a diploid contig with long reads; resume writes .v1 as in JAX.  Also
+15x ONT-like reads from nextpolish_tpu_torch.sim), for task 5 with CLR
+reads (lgs_minimap2_options = -x map-pb), for task = best with only
+HiFi reads (6, 6, with the read-length filter at work) and for task
+1,2,3,4 on a diploid contig with long reads; resume writes .v1 as in
+JAX.  Also
 NPT_NUM_PROCS without a coordinator (one process, as in JAX) and the
 port's repaired spill estimate on a truncated .gz."""
 import gzip
@@ -25,6 +28,25 @@ def _long_project(d):
     case = sim.simulate_case(3, 2, [5000, 3000], 15, read_len=(1000, 3000))
     sim.write_project(str(d), case.names, case.drafts, "5",
                       lgs=case.records)
+
+
+def _clr_project(d):
+    """task 5 on CLR reads: -x map-pb makes lgs_read_type clr."""
+    case = sim.simulate_case(42, 2, [5000, 3000], 15, **sim.PROFILES["clr"])
+    sim.write_project(str(d), case.names, case.drafts, "5", lgs=case.records,
+                      extra=["lgs_minimap2_options = -x map-pb"])
+
+
+def _hifi_project(d):
+    """task = best with only HiFi reads (tasks 6, 6), at about 15x with
+    HiFi error rates; reads of 500-5,000 bp, so -min_read_len 1k drops
+    some."""
+    case = sim.simulate_case(41, 2, [4000, 3000], 15, read_len=(500, 5000),
+                             sub=0.002, ins=0.002, dele=0.002)
+    assert min(len(r["seq_nib"]) for r in case.records) < 1000
+    sim.write_project(str(d), case.names, case.drafts, "best",
+                      hifi=case.records,
+                      hifi_options="-min_read_len 1k -max_depth 100")
 
 
 def _diploid_project(d):
@@ -49,12 +71,22 @@ def _both(d):
 
 
 @pytest.mark.parametrize("project", ["task12_pe150", "task5_ont",
-                                     "task1234_diploid"])
-def test_pipeline_matches_jax(tmp_path, project):
+                                     "task1234_diploid", "task6_hifi",
+                                     "task5_clr"])
+def test_pipeline_matches_jax(tmp_path, project, monkeypatch):
     if project == "task12_pe150":
         _make_project(tmp_path, np.random.default_rng(21))
     elif project == "task5_ont":
         _long_project(tmp_path)
+    elif project == "task5_clr":
+        _clr_project(tmp_path)
+        assert t_load(str(tmp_path / "run.cfg")).lgs_read_type == "clr"
+    elif project == "task6_hifi":
+        _hifi_project(tmp_path)
+        assert t_load(str(tmp_path / "run.cfg")).task == [6, 6]
+        # both pipelines through engine 2's device route (the port's plain
+        # level scan here) under the HiFi rules
+        monkeypatch.setenv("NPT_CNS_ENGINE", "device")
     else:
         _diploid_project(tmp_path)
     want, got = _both(tmp_path)

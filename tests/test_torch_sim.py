@@ -196,3 +196,78 @@ def test_simulate_diploid_case():
                                       long_depth=20)
     assert again.drafts == c.drafts and again.hap2s == c.hap2s
     assert [r["pos"] for r in again.records] == [r["pos"] for r in c.records]
+
+
+def _write_project_before(outdir, names, drafts, task, sgs=None, lgs=None):
+    """sim.write_project as it was before it took HiFi reads and free-form
+    run.cfg lines."""
+    import os
+
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "draft.fa"), "wb") as fh:
+        for name, seq in zip(names, drafts):
+            fh.write(b">" + name.encode() + b"\n" + seq + b"\n")
+    cfg = [f"task = {task}", "genome = ./draft.fa", "workdir = ./work"]
+    if sgs is not None:
+        sim.write_reads(sgs, [os.path.join(outdir, "r1.fq.gz"),
+                              os.path.join(outdir, "r2.fq.gz")])
+        with open(os.path.join(outdir, "sgs.fofn"), "w") as fh:
+            fh.write("r1.fq.gz\nr2.fq.gz\n")
+        cfg.append("sgs_fofn = ./sgs.fofn")
+    if lgs is not None:
+        sim.write_reads(lgs, [os.path.join(outdir, "lgs.fa.gz")],
+                        fastq=False)
+        with open(os.path.join(outdir, "lgs.fofn"), "w") as fh:
+            fh.write("lgs.fa.gz\n")
+        cfg.append("lgs_fofn = ./lgs.fofn")
+    path = os.path.join(outdir, "run.cfg")
+    with open(path, "w") as fh:
+        fh.write("\n".join(cfg) + "\n")
+    return path
+
+
+def _project_files(d) -> dict:
+    """A project's files by name, .gz files decompressed (gzip writes the
+    time into its header)."""
+    import gzip
+
+    return {p.name: (gzip.decompress(p.read_bytes()) if p.suffix == ".gz"
+                     else p.read_bytes()) for p in sorted(d.iterdir())}
+
+
+def test_write_project_read_types(tmp_path):
+    """write_project's HiFi reads and extra run.cfg lines parse through
+    the port's load_config: task = best with only HiFi reads is tasks 6,
+    6 with hifi_options' filters; -x map-pb makes the long reads clr.
+    Projects of the earlier callers (short reads, long reads, both) stay
+    byte-identical, and the ONT profile is simulate_case's default."""
+    from nextpolish_tpu_torch.config import load_config
+
+    case = sim.simulate_case(5, 2, [3000, 2000], 8, **sim.PROFILES["hifi"])
+    cfg = load_config(sim.write_project(
+        str(tmp_path / "hifi"), case.names, case.drafts, "best",
+        hifi=case.records, hifi_options="-min_read_len 1k -max_depth 100"))
+    assert cfg.task == [6, 6]
+    assert cfg.sgs_fofn is None and cfg.lgs_fofn is None
+    assert cfg.hifi_min_read_len == 1000 and cfg.hifi_max_depth == 100
+    assert (tmp_path / "hifi" / "hifi.fofn").read_text() == "hifi.fa.gz\n"
+    cfg = load_config(sim.write_project(
+        str(tmp_path / "clr"), case.names, case.drafts, "5",
+        lgs=case.records, extra=["lgs_minimap2_options = -x map-pb"]))
+    assert cfg.task == [5] and cfg.lgs_read_type == "clr"
+
+    short = sim.simulate_short_case(6, [2000], 10)
+    for k, (sgs, lgs) in enumerate([(short.records, None),
+                                    (None, case.records),
+                                    (short.records, case.records)]):
+        got, want = tmp_path / f"got{k}", tmp_path / f"want{k}"
+        sim.write_project(str(got), case.names, case.drafts, "default",
+                          sgs=sgs, lgs=lgs)
+        _write_project_before(str(want), case.names, case.drafts,
+                              "default", sgs=sgs, lgs=lgs)
+        assert _project_files(got) == _project_files(want)
+    a = sim.simulate_case(7, 1, 20_000, 5)
+    b = sim.simulate_case(7, 1, 20_000, 5, **sim.PROFILES["ont"])
+    assert a.drafts == b.drafts and [r["seq_nib"].tobytes() for r in
+                                     a.records] == [r["seq_nib"].tobytes()
+                                                    for r in b.records]

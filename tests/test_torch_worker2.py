@@ -1,7 +1,8 @@
 """The slice as a whole: the port's worker2 (--device cpu, the plain level
 scan) against the JAX package's worker2 with NPT_CNS_ENGINE=device, on
 simulated contigs whose BAM and .bai are written by the JAX package's own
-writer.  The FASTA files must be byte-equal."""
+writer, for each read type's rules (ont, hifi, and the indel-heavy clr
+and rs profiles of sim.PROFILES).  The FASTA files must be byte-equal."""
 import pytest
 import torch
 
@@ -10,16 +11,20 @@ from nextpolish_tpu.io import bam as jax_bam
 from nextpolish_tpu_torch import sim
 from nextpolish_tpu_torch import worker2 as torch_worker2
 
-CASES = {  # read type -> (seed, contig lengths, depth, (sub, ins, del))
-    "ont": (31, [12000, 9000], 12, (0.03, 0.03, 0.03)),
-    "hifi": (32, [12000], 12, (0.002, 0.002, 0.002)),
+CASES = {  # read type -> (seed, contig lengths, depth, simulate_case's
+    #                         error rates and read lengths)
+    "ont": (31, [12000, 9000], 12, dict(sub=0.03, ins=0.03, dele=0.03,
+                                        read_len=(2000, 5000))),
+    "hifi": (32, [12000], 12, dict(sub=0.002, ins=0.002, dele=0.002,
+                                   read_len=(2000, 5000))),
+    "clr": (33, [9000], 12, sim.PROFILES["clr"]),
+    "rs": (34, [9000], 12, sim.PROFILES["rs"]),
 }
 
 
 def _write_inputs(tmp_path, rt):
-    seed, lens, depth, (sub, ins, dele) = CASES[rt]
-    c = sim.simulate_case(seed, len(lens), lens, depth, read_len=(2000, 5000),
-                          sub=sub, ins=ins, dele=dele)
+    seed, lens, depth, profile = CASES[rt]
+    c = sim.simulate_case(seed, len(lens), lens, depth, **profile)
     fa = tmp_path / "genome.fa"
     fa.write_bytes(b"".join(b">" + n.encode() + b"\n" + d + b"\n"
                             for n, d in zip(c.names, c.drafts)))
@@ -29,7 +34,7 @@ def _write_inputs(tmp_path, rt):
     return c, str(fa), str(bam)
 
 
-@pytest.mark.parametrize("rt", ["ont", "hifi"])
+@pytest.mark.parametrize("rt", ["ont", "hifi", "clr", "rs"])
 def test_worker2_matches_jax(tmp_path, rt, monkeypatch):
     c, fa, bam = _write_inputs(tmp_path, rt)
     monkeypatch.setenv("NPT_CNS_ENGINE", "device")
