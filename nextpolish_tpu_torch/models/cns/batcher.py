@@ -20,6 +20,7 @@ output does not depend on contig scheduling.
 from __future__ import annotations
 
 import threading
+import time
 
 from ...runtime import trace
 from .device_dp import B_MAX, _to_edge_outputs, collect_group, dispatch_group
@@ -69,7 +70,7 @@ class CnsBatcher:
         self.device = device
         self.B = max_batch or B_MAX
         self.cond = threading.Condition()
-        self.pending = []  # [(dw, fut)]
+        self.pending = []  # [(dw, fut, trace.here(), submit time_ns)]
         self.prepping = 0
         self.waiting = 0
 
@@ -88,7 +89,7 @@ class CnsBatcher:
             fut.ready = True  # host fallback (result None)
             return fut
         with self.cond:
-            self.pending.append((dw, fut))
+            self.pending.append((dw, fut, trace.here(), time.time_ns()))
             if len(self.pending) >= self.B:
                 self._dispatch_locked()
         return fut
@@ -98,9 +99,14 @@ class CnsBatcher:
         while len(self.pending) >= self.B or (force and self.pending):
             batch = self.pending[:self.B]
             del self.pending[:len(batch)]
-            dws = [dw for dw, _ in batch]
+            # cns.queue: each window's wait from its submit to this
+            # launch, on its producer's thread and window
+            now = time.time_ns()
+            for _, _, ids, t in batch:
+                trace.span_at("cns.queue", t, now, **ids)
+            dws = [b[0] for b in batch]
             g = _Group(dws, self.read_type, self.device)
-            for i, (_, f) in enumerate(batch):
+            for i, (_, f, _, _) in enumerate(batch):
                 f.group = g
                 f.idx = i
         self.cond.notify_all()

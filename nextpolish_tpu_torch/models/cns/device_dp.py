@@ -337,7 +337,6 @@ class Pending:
     best: torch.Tensor
     sc: torch.Tensor
     done: object  # torch.cuda.Event | None
-    kernel_events: tuple  # (start, end) CUDA events, or ()
     keep: tuple
 
 
@@ -354,15 +353,11 @@ def dispatch_group(dws, read_type: str, device=None,
     trace.count("cns.windows", len(dws))
     if dev.type == "cpu":
         best, sc = level_scan(host, rt_id, c)
-        return Pending(host.win_host, best, sc, None, (), ())
+        return Pending(host.win_host, best, sc, None, ())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
         dbatch = host.to(dev, non_blocking=True)
-        k0 = torch.cuda.Event(enable_timing=True)
-        k1 = torch.cuda.Event(enable_timing=True)
-        k0.record(stream)
         best_d, sc_d = level_scan(dbatch, rt_id, c)
-        k1.record(stream)
         best = torch.empty(best_d.shape, dtype=best_d.dtype,
                            pin_memory=True)
         sc = torch.empty(sc_d.shape, dtype=sc_d.dtype, pin_memory=True)
@@ -370,7 +365,7 @@ def dispatch_group(dws, read_type: str, device=None,
         sc.copy_(sc_d, non_blocking=True)
         done = torch.cuda.Event()
         done.record(stream)
-    return Pending(host.win_host, best, sc, done, (k0, k1),
+    return Pending(host.win_host, best, sc, done,
                    (host, dbatch, best_d, sc_d))
 
 
@@ -379,8 +374,6 @@ def collect_group(pend: Pending) -> list:
     sc [Lt, 6] int32); levels before the window's sc_from read NEG."""
     if pend.done is not None:
         pend.done.synchronize()
-        k0, k1 = pend.kernel_events
-        trace.add("cns.kernel", k0.elapsed_time(k1) / 1e3)
     best_all = pend.best.numpy()
     sc_all = pend.sc.numpy()
     out = []

@@ -21,6 +21,7 @@ import numpy as np
 from ...device import resolve_device
 from ...io.bam import AlnBatch
 from ...ops.pileup import region_overlap_mask
+from ...runtime import trace
 from . import structural as st
 from .dp import Consensus, link_dp, traceback
 from .msa import build_edges
@@ -81,8 +82,9 @@ def window_prep(batch: AlnBatch, tid: int, contig_ascii: np.ndarray,
     L = e - s
     brk_g = struct_ctx is not None and struct_ctx.brk_g
     if not brk_g:
-        work = _window_prep_native(batch, tid, contig_ascii, s, e,
-                                   read_type, contig_name)
+        with trace.timed("cns.prep.reads"):
+            work = _window_prep_native(batch, tid, contig_ascii, s, e,
+                                       read_type, contig_name)
         if work is not None:
             return work
     accum = WindowAccum(contig_ascii, s, e, GAP_MIN_LEN[read_type])
@@ -95,105 +97,118 @@ def window_prep(batch: AlnBatch, tid: int, contig_ascii: np.ndarray,
 
     gaps: list[st.GapInfo] = []
     sup_alns: list[st.SupAln] = []
-    ridx = np.flatnonzero(region_overlap_mask(batch, tid, s,
-                                              max(rege_limit - 1, s)))
-    flags = batch.flag
-    poss = batch.pos
-    lqs = batch.lqseq
-    for r in ridx:
-        r = int(r)
-        rege_flag = int(poss[r]) < e
-        g = (st.read_gap_candidate(batch, r, contig_name)
-             if has_tags else st.GapCand())
-        flag = int(flags[r])
-        cig = batch.rec_cigar(r)
-        l_qseq = int(lqs[r])
-        if l_qseq == 0 and len(cig):
-            ops, lens = cig & 0xF, cig >> 4
-            l_qseq = int(lens[np.isin(ops, (0, 1, 4, 5, 7, 8))].sum())
-        if l_qseq == 0:
-            continue
+    with trace.timed("cns.prep.reads"):
+        ridx = np.flatnonzero(region_overlap_mask(batch, tid, s,
+                                                  max(rege_limit - 1, s)))
+        flags = batch.flag
+        poss = batch.pos
+        lqs = batch.lqseq
+        for r in ridx:
+            r = int(r)
+            rege_flag = int(poss[r]) < e
+            g = (st.read_gap_candidate(batch, r, contig_name)
+                 if has_tags else st.GapCand())
+            flag = int(flags[r])
+            cig = batch.rec_cigar(r)
+            l_qseq = int(lqs[r])
+            if l_qseq == 0 and len(cig):
+                ops, lens = cig & 0xF, cig >> 4
+                l_qseq = int(lens[np.isin(ops, (0, 1, 4, 5, 7, 8))].sum())
+            if l_qseq == 0:
+                continue
 
-        def clip(end):
-            if not len(cig):
-                return 0
-            c = cig[-1] if end else cig[0]
-            return int(c >> 4) if (c & 0xF) in (4, 5) else 0
+            def clip(end):
+                if not len(cig):
+                    return 0
+                c = cig[-1] if end else cig[0]
+                return int(c >> 4) if (c & 0xF) in (4, 5) else 0
 
-        rd_s = clip(0)
-        rd_e = l_qseq - clip(1)
-        if flag & 0xD04:
-            if rege_flag and brk_g and g.score:
-                sup_alns.append(st.SupAln(int(poss[r]), rd_s,
-                                          cig.copy()))
-            continue
-        if (not g.score) and (rd_e - rd_s) / l_qseq <= max_clip:
-            continue
-        if brk_g:
-            struct_ctx.depth.add_read(int(poss[r]), st._endpos(batch, r), s)
-        if not rege_flag:
-            continue
-        tr = trim_read_columns(*read_columns(batch, r), accum.ref_cns, s, e)
-        if tr is None:
-            continue
-        t_local, delta, qbase, q_s = tr
-        cov_s = accum.cov_at(int(t_local[0]))
-        cov_e = accum.cov_at(int(t_local[-1]) + 1)
-        if ((cov_s > 3000 and cov_e > 3000)
-                or (cov_s > 500 and cov_e > 500
-                    and rd_e - rd_s < l_qseq * 0.9)):
-            continue
-        row_id = accum.add_row(t_local, delta, qbase, r)
-        if brk_g and g.score and g.gap_s >= s and g.gap_e <= e:
-            gaps.append(st.GapInfo(g.gap_s, g.gap_e, row_id, q_s,
-                                   g.fs, g.ds, 0,
-                                   batch.rec_seq_nib(r).copy()))
+            rd_s = clip(0)
+            rd_e = l_qseq - clip(1)
+            if flag & 0xD04:
+                if rege_flag and brk_g and g.score:
+                    sup_alns.append(st.SupAln(int(poss[r]), rd_s,
+                                              cig.copy()))
+                continue
+            if (not g.score) and (rd_e - rd_s) / l_qseq <= max_clip:
+                continue
+            if brk_g:
+                struct_ctx.depth.add_read(int(poss[r]),
+                                          st._endpos(batch, r), s)
+            if not rege_flag:
+                continue
+            tr = trim_read_columns(*read_columns(batch, r), accum.ref_cns,
+                                   s, e)
+            if tr is None:
+                continue
+            t_local, delta, qbase, q_s = tr
+            cov_s = accum.cov_at(int(t_local[0]))
+            cov_e = accum.cov_at(int(t_local[-1]) + 1)
+            if ((cov_s > 3000 and cov_e > 3000)
+                    or (cov_s > 500 and cov_e > 500
+                        and rd_e - rd_s < l_qseq * 0.9)):
+                continue
+            row_id = accum.add_row(t_local, delta, qbase, r)
+            if brk_g and g.score and g.gap_s >= s and g.gap_e <= e:
+                gaps.append(st.GapInfo(g.gap_s, g.gap_e, row_id, q_s,
+                                       g.fs, g.ds, 0,
+                                       batch.rec_seq_nib(r).copy()))
 
     clusters: list[st.GapCluster] = []
     if brk_g:
-        rr = struct_ctx.depth
-        rr_count = (st.INS_RADOM_COUNT if rr.rreads_w
-                    else len(rr.rreads))
-        if accum.n_rows() < 150 or rr_count < 150 or not sup_alns:
-            struct_ctx.brk_g = False
-            brk_g = False
-    if brk_g:
-        d = struct_ctx.depth
-        d.finish_reads(s)
-        nbins = (e - s) // st.INS_WIN_STEP
-        if not struct_ctx.ref_d:
-            struct_ctx.ref_d = st.cal_ref_d(d.ref_ds, nbins)
-        ld = st.update_ld_regs(d.ref_ds, nbins, d.rreads_w,
-                               struct_ctx.ref_d)
-        if struct_ctx.ref_ide:
-            st.update_ld_regs_with_refqv(
-                ld, d.ref_ds, struct_ctx.qv, d.rreads_w * st.INS_WIN_DIV,
-                s, e,
-                int(struct_ctx.ref_d * st.INS_MIN_DEPTH_RATIO_REFQV),
-                int(struct_ctx.ref_ide * struct_ctx.ide_t),
-                struct_ctx.ort_t, struct_ctx.irt_t)
-        clusters = st.update_gap_cluster(gaps, d.ref_ds, d.rreads_w,
-                                         struct_ctx.ref_d, s)
-
-        def add_sup_row(fs, cigar, nib):
-            tr = trim_read_columns(*expand_columns(fs, cigar, nib),
-                                   accum.ref_cns, s, e)
-            if tr is None:
-                return None
-            rid = accum.add_row(tr[0], tr[1], tr[2], -2)
-            return rid, tr[3]
-
-        st.realign_cluster_sups(clusters, sup_alns, accum, accum.ref_cns,
-                                s, e, add_sup_row)
-        st.generate_gapseqs(clusters, accum, s)
-        if struct_ctx.ref_d > 15:
-            st.update_split_p(struct_ctx.split_ps, clusters, ld, s, e - s,
-                              struct_ctx.qv)
-
+        with trace.timed("cns.prep.struct"):
+            clusters = _struct_pass(struct_ctx, accum, gaps, sup_alns, s, e)
     merged = accum.finish()
     coverage = accum.coverage[:L] + 1
     return WindowWork(merged, coverage, L, accum.l_ins, accum.l_del,
                       clusters)
+
+
+def _struct_pass(struct_ctx: StructState, accum: WindowAccum, gaps: list,
+                 sup_alns: list, s: int, e: int) -> list:
+    """The structural pass after a window's reads: the depth track, the
+    low-depth regions, the gap clusters with their supplementary
+    realignment and gap sequences, and the split points.  Turns the
+    contig's structural layer off (and returns no clusters) where the
+    window has too few rows, random reads or split reads."""
+    rr = struct_ctx.depth
+    rr_count = (st.INS_RADOM_COUNT if rr.rreads_w
+                else len(rr.rreads))
+    if accum.n_rows() < 150 or rr_count < 150 or not sup_alns:
+        struct_ctx.brk_g = False
+        return []
+    d = struct_ctx.depth
+    d.finish_reads(s)
+    nbins = (e - s) // st.INS_WIN_STEP
+    if not struct_ctx.ref_d:
+        struct_ctx.ref_d = st.cal_ref_d(d.ref_ds, nbins)
+    ld = st.update_ld_regs(d.ref_ds, nbins, d.rreads_w,
+                           struct_ctx.ref_d)
+    if struct_ctx.ref_ide:
+        st.update_ld_regs_with_refqv(
+            ld, d.ref_ds, struct_ctx.qv, d.rreads_w * st.INS_WIN_DIV,
+            s, e,
+            int(struct_ctx.ref_d * st.INS_MIN_DEPTH_RATIO_REFQV),
+            int(struct_ctx.ref_ide * struct_ctx.ide_t),
+            struct_ctx.ort_t, struct_ctx.irt_t)
+    clusters = st.update_gap_cluster(gaps, d.ref_ds, d.rreads_w,
+                                     struct_ctx.ref_d, s)
+
+    def add_sup_row(fs, cigar, nib):
+        tr = trim_read_columns(*expand_columns(fs, cigar, nib),
+                               accum.ref_cns, s, e)
+        if tr is None:
+            return None
+        rid = accum.add_row(tr[0], tr[1], tr[2], -2)
+        return rid, tr[3]
+
+    st.realign_cluster_sups(clusters, sup_alns, accum, accum.ref_cns,
+                            s, e, add_sup_row)
+    st.generate_gapseqs(clusters, accum, s)
+    if struct_ctx.ref_d > 15:
+        st.update_split_p(struct_ctx.split_ps, clusters, ld, s, e - s,
+                          struct_ctx.qv)
+    return clusters
 
 
 def _window_prep_native(batch: AlnBatch, tid: int,
@@ -436,7 +451,12 @@ def consensus_for_contig(batch: AlnBatch, tid: int, contig: bytes,
     `batch` may also be a region fetcher (anything with
     .fetch(tid, start, end) -> AlnBatch, e.g. io.bamregion.RegionFetcher):
     each window then reads only its own BAM region — the out-of-core
-    analog of bam_merge_iter_init per window (lib/ctg_cns.c:3474)."""
+    analog of bam_merge_iter_init per window (lib/ctg_cns.c:3474).
+
+    A window's spans serve the request `<contig_name>:<window start>`:
+    cns.fetch, cns.prep (cns.prep.reads, cns.prep.struct), cns.densify,
+    cns.queue (in the batcher), cns.dp (the submit, then the wait; the
+    host engines' DP of a group), cns.finish (cns.repair)."""
     contig_ascii = np.frombuffer(contig.upper(), dtype=np.uint8)
     length = len(contig)
     b = cal_win_len(window, overlap, length)
@@ -473,43 +493,34 @@ def consensus_for_contig(batch: AlnBatch, tid: int, contig: bytes,
         lvl_bytes, len(starts), device=device,
         free_bytes=None if eng == "device" else host_available_bytes())
 
-    from ...runtime import trace
-
     lq_min_qv = 80 if read_type == "hifi" else 20
 
-    def prep_group(glo):
-        works = []
-        for s, e in starts[glo:glo + group]:
-            if fetcher is not None:
-                lim = (max(e, st.INS_RADOM_LEN)
-                       if (s == 0 and struct_ctx.brk_g) else e)
-                wbatch = fetcher.fetch(tid, s, max(lim - 1, s))
-            else:
-                wbatch = batch
-            with trace.timed("cns.host"):
-                works.append(window_prep(wbatch, tid, contig_ascii, s, e,
-                                         read_type, struct_ctx,
-                                         contig_name))
-        return works
+    def fetch(s, e):
+        if fetcher is None:
+            return batch
+        # window 0 extends the fetch so the depth track can sample 15 Mb
+        lim = max(e, st.INS_RADOM_LEN) if (s == 0 and struct_ctx.brk_g) \
+            else e
+        with trace.timed("cns.fetch"):
+            return fetcher.fetch(tid, s, max(lim - 1, s))
 
-    def finish_group(glo, works, cnss):
-        out = []
-        with trace.timed("cns.host"):
-            for (s, e), work, cns in zip(starts[glo:glo + group], works,
-                                         cnss):
-                if repair:
-                    cns = window_repair(work, cns, read_type)
-                out.append((s, cns))
-        return out
+    def prep(s, e):
+        wbatch = fetch(s, e)
+        with trace.timed("cns.prep"):
+            return window_prep(wbatch, tid, contig_ascii, s, e, read_type,
+                               struct_ctx, contig_name)
+
+    def finish(work, cns):
+        if repair:
+            with trace.timed("cns.repair"):
+                cns = window_repair(work, cns, read_type)
+        return cns
 
     parts = []
     if eng == "device":
         # every prepped window goes straight to the shared batcher: groups
         # of B windows — across contigs, when `batcher` is shared — leave
         # in one kernel launch while the host preps the next windows.
-        # Spans: cns.fetch (BAM region), cns.prep (tags), cns.densify
-        # (edges + level stream), cns.dp (waits on the scan), cns.finish
-        # (traceback + LQ repair); cns.host = prep + densify + finish.
         from collections import deque
 
         from .batcher import CnsBatcher
@@ -521,50 +532,46 @@ def consensus_for_contig(batch: AlnBatch, tid: int, contig: bytes,
 
         def finish_one():
             (s, e), work, edges, fut = futs.popleft()
-            with trace.timed("cns.dp"):
-                r = fut.result()
-            with trace.timed("cns.host"), trace.timed("cns.finish"):
-                cns = None
-                if r is not None:
-                    cns = traceback(edges, r[0], r[1], work.coverage,
-                                    work.L, read_type, min_cov,
-                                    lq_min_qv=lq_min_qv)
-                if cns is None:
-                    cns = window_dp(work, read_type, min_cov,
-                                    engine="native")
-                if repair:
-                    cns = window_repair(work, cns, read_type)
-            parts.append((s, cns))
+            with trace.request(f"{contig_name}:{s}"):
+                with trace.timed("cns.dp"):
+                    r = fut.result()
+                with trace.timed("cns.finish"):
+                    cns = None
+                    if r is not None:
+                        cns = traceback(edges, r[0], r[1], work.coverage,
+                                        work.L, read_type, min_cov,
+                                        lq_min_qv=lq_min_qv)
+                    if cns is None:
+                        cns = window_dp(work, read_type, min_cov,
+                                        engine="native")
+                    parts.append((s, finish(work, cns)))
 
         with bat.contig():
             for s, e in starts:
-                if fetcher is not None:
-                    lim = (max(e, st.INS_RADOM_LEN)
-                           if (s == 0 and struct_ctx.brk_g) else e)
-                    with trace.timed("cns.fetch"):
-                        wbatch = fetcher.fetch(tid, s, max(lim - 1, s))
-                else:
-                    wbatch = batch
-                with trace.timed("cns.host"):
-                    with trace.timed("cns.prep"):
-                        work = window_prep(wbatch, tid, contig_ascii, s, e,
-                                           read_type, struct_ctx,
-                                           contig_name)
+                with trace.request(f"{contig_name}:{s}"):
+                    work = prep(s, e)
                     with trace.timed("cns.densify"):
                         edges, dw = prepare_window(work.merged,
                                                    work.coverage, work.L)
-                with trace.timed("cns.dp"):
-                    futs.append(((s, e), work, edges, bat.submit(dw)))
+                    with trace.timed("cns.dp"):
+                        futs.append(((s, e), work, edges, bat.submit(dw)))
                 while len(futs) > group:
                     finish_one()
         while futs:
             finish_one()
     else:
         for glo in range(0, len(starts), group):
-            works = prep_group(glo)
+            works = []
+            for s, e in starts[glo:glo + group]:
+                with trace.request(f"{contig_name}:{s}"):
+                    works.append(prep(s, e))
             with trace.timed("cns.dp"):
                 cnss = [window_dp(w, read_type, min_cov, engine=eng)
                         for w in works]
-            parts.extend(finish_group(glo, works, cnss))
+            for (s, e), work, cns in zip(starts[glo:glo + group], works,
+                                         cnss):
+                with trace.request(f"{contig_name}:{s}"), \
+                        trace.timed("cns.finish"):
+                    parts.append((s, finish(work, cns)))
     return stitch(parts, overlap, split=split,
                   split_ps=struct_ctx.split_ps)

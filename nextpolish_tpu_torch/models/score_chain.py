@@ -257,25 +257,18 @@ def _apply_choice(state: ContigState, n_dp: int, choice: np.ndarray,
 
 class _Launch:
     """One dispatched chain DP: the result bytes (pinned host memory on a
-    card, filled once `done` fires), the CUDA events around the device
-    work, and what must stay alive until then."""
+    card, filled once `done` fires) and what must stay alive until
+    then."""
 
-    def __init__(self, out, done=None, events=(), keep=()):
+    def __init__(self, out, done=None, keep=()):
         self.out = out
         self.done = done
-        self.events = events
         self.keep = keep
 
     def wait(self) -> np.ndarray:
-        """The result bytes [B, L] (the finish thread calls this; the
-        time between the launch's two CUDA events is added to
-        task1.kernel once: the host's enqueue of the DP's ops plus their
-        device time, so an upper bound on the device time, which
-        chip_smoke.py measures apart as task1.dp_device_ms)."""
+        """The result bytes [B, L] (the finish thread calls this)."""
         if self.done is not None:
             self.done.synchronize()
-            k0, k1 = self.events
-            trace.add("task1.kernel", k0.elapsed_time(k1) / 1e3)
             self.done, self.keep = None, ()
         return self.out.numpy()
 
@@ -363,8 +356,9 @@ def score_chain_contig_prep(name: str, draft: bytes, batch: AlnBatch,
                         view.n_cells_dp, batch=batch, levels=levels)
 
 
-# one launch's device work is enqueued whole before the next one's, so the
-# CUDA events around it time that launch alone
+# one launch's upload, DP and copy back are enqueued whole on the shared
+# stream before the next one's, so its `done` event does not wait behind
+# another launch's DP
 _DISPATCH_LOCK = threading.Lock()
 
 
@@ -400,17 +394,13 @@ def dispatch_chain_group(handles: list, device=None) -> None:
             with _DISPATCH_LOCK, torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev)
                 dbuf = host.to(dev, non_blocking=True)
-                k0 = torch.cuda.Event(enable_timing=True)
-                k1 = torch.cuda.Event(enable_timing=True)
-                k0.record(stream)
                 packed = chain_correct_planes_batch(dbuf, *h0.key)
-                k1.record(stream)
                 out = torch.empty(packed.shape, dtype=torch.int8,
                                   pin_memory=True)
                 out.copy_(packed, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(stream)
-            launch = _Launch(out, done, (k0, k1), (host, dbuf, packed))
+            launch = _Launch(out, done, (host, dbuf, packed))
     for i, h in enumerate(handles):
         h.launch = launch
         h.lane = i

@@ -23,6 +23,7 @@ from .io.fasta import FastaIndex
 from .kit import parse_num_unit, plog
 from .models.ctg_cns import ctg_cns_contig
 from .pipeline import read_polished_names
+from .runtime import trace
 
 log = plog()
 
@@ -46,6 +47,12 @@ def open_bam_source(paths: list[str]):
 
 
 def main(argv=None):
+    """The worker's command line, all of it inside the `worker2` span."""
+    with trace.timed("worker2"):
+        return _main(argv)
+
+
+def _main(argv):
     p = argparse.ArgumentParser(
         prog="nextpolish_tpu_torch.worker2",
         description="Polish a genome with long reads (tasks 5/6).",
