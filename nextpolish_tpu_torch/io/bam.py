@@ -152,6 +152,27 @@ class AlnBatch:
         self._span_cache = spans
         return spans
 
+    def sa_tagged(self) -> np.ndarray:
+        """bool [N]: records whose aux data holds the bytes `SA` followed
+        by `Z` or `H`, the keys and types an SA-tag walk takes: every
+        record with an SA tag, and the rare record whose other tags hold
+        those bytes.  Memoized per batch."""
+        cached = getattr(self, "_sa_cache", None)
+        if cached is not None:
+            return cached
+        out = np.zeros(len(self), dtype=bool)
+        t = self.tags
+        if t is not None and len(t) >= 3:
+            hit = ((t[:-2] == ord("S")) & (t[1:-1] == ord("A"))
+                   & ((t[2:] == ord("Z")) | (t[2:] == ord("H"))))
+            cum = np.concatenate([[0], np.cumsum(hit)])
+            lo = self.tags_off.astype(np.int64)
+            ok = self.tags_len >= 3
+            # a key that starts in [lo, lo + len - 2) lies inside the record
+            out[ok] = cum[lo[ok] + self.tags_len[ok] - 2] > cum[lo[ok]]
+        self._sa_cache = out
+        return out
+
     def clip_lens(self) -> tuple[np.ndarray, np.ndarray]:
         """(left, right) soft+hard clip length per record."""
         n = len(self)

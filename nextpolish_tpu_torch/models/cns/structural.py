@@ -250,11 +250,40 @@ class DepthTrack:
         else:
             self._update(rf_s, rf_e, win_s)
 
+    def add_reads(self, rf_s: np.ndarray, rf_e: np.ndarray, win_s: int):
+        """add_read over each (rf_s[i], rf_e[i]) in order: the first reads
+        fill the sample until it holds INS_RADOM_COUNT, which sets
+        rreads_w; the rest go to the binned depth."""
+        rf_s = np.asarray(rf_s, dtype=np.int64)
+        rf_e = np.asarray(rf_e, dtype=np.int64)
+        n = 0
+        if not self.rreads_w:
+            n = min(len(rf_s), INS_RADOM_COUNT - len(self.rreads))
+            self.rreads += zip(rf_s[:n].tolist(), rf_e[:n].tolist())
+            if len(self.rreads) < INS_RADOM_COUNT:
+                return
+            self._init_w(win_s)
+        self._update_many(rf_s[n:], rf_e[n:], win_s)
+
     def _init_w(self, win_s: int):
-        lens = np.array([e - s for s, e in self.rreads], dtype=np.int64)
-        self.rreads_w = cal_rreads_w(lens)
-        for s, e in self.rreads:
-            self._update(s, e, win_s)
+        se = np.array(self.rreads, dtype=np.int64).reshape(-1, 2)
+        self.rreads_w = cal_rreads_w(se[:, 1] - se[:, 0])
+        self._update_many(se[:, 0], se[:, 1], win_s)
+
+    def _update_many(self, rf_s: np.ndarray, rf_e: np.ndarray, win_s: int):
+        """_update over every read, as one difference array."""
+        w = self.rreads_w
+        s_ = np.where(rf_s > win_s, rf_s - win_s, 0)
+        e_ = rf_e - win_s
+        long_ = e_ - s_ + 1 >= w * 3
+        lo = (s_[long_] + w) // INS_WIN_STEP
+        hi = np.minimum((e_[long_] - 2 * w) // INS_WIN_STEP + 1, self._cap)
+        ok = lo < hi  # _update's e_ >= s_, and a slice the cap leaves
+        if not ok.any():
+            return
+        d = (np.bincount(lo[ok], minlength=self._cap + 1)
+             - np.bincount(hi[ok], minlength=self._cap + 1))
+        self.ref_ds += np.cumsum(d[:self._cap]).astype(np.int32)
 
     def finish_reads(self, win_s: int):
         if not self.rreads_w and self.rreads:

@@ -198,6 +198,36 @@ class WindowAccum:
         self.aln_s.append(0)
         self.aln_e.append(self.L - 1)
         self.ridx.append(-1)
+        self._cols = None  # finish()'s result while no row is added
+
+    @classmethod
+    def holding(cls, contig_ascii: np.ndarray, win_s: int, win_e: int,
+                gap_min_len: int, cols: TagColumns, coverage: np.ndarray,
+                l_ins: np.ndarray, l_del: np.ndarray,
+                max_delta: np.ndarray) -> "WindowAccum":
+        """An accumulator that holds the rows of `cols` (the reference
+        row first) and the tracks that adding them row by row leaves
+        (the native tag walker's output); finish() returns `cols` until
+        a row is added."""
+        self = cls.__new__(cls)
+        self.win_s = win_s
+        self.win_e = win_e
+        self.L = win_e - win_s
+        self.gap_min_len = gap_min_len
+        self.ref_cns = ASCII_TO_CNS[contig_ascii]
+        cut = cols.row_off[1:-1]
+        self.all_t = np.split(cols.t_pos, cut)
+        self.all_d = np.split(cols.delta, cut)
+        self.all_q = np.split(cols.q_base, cut)
+        self.aln_s = cols.aln_t_s.tolist()
+        self.aln_e = cols.aln_t_e.tolist()
+        self.ridx = cols.ridx.tolist()
+        self.coverage = coverage
+        self.l_ins = l_ins
+        self.l_del = l_del
+        self.max_delta = max_delta
+        self._cols = cols
+        return self
 
     def n_rows(self) -> int:
         return len(self.aln_s)
@@ -213,6 +243,7 @@ class WindowAccum:
 
     def add_row(self, t_local, delta, qbase, source: int) -> int:
         row_id = len(self.aln_s)
+        self._cols = None
         self.all_t.append(t_local)
         self.all_d.append(delta)
         self.all_q.append(qbase)
@@ -230,6 +261,8 @@ class WindowAccum:
         return row_id
 
     def finish(self) -> TagColumns:
+        if self._cols is not None:
+            return self._cols
         t_pos = np.concatenate(self.all_t).astype(np.int32)
         delta = np.concatenate(self.all_d)
         q_base = np.concatenate(self.all_q)

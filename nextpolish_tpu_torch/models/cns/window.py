@@ -26,9 +26,12 @@ from . import structural as st
 from .dp import Consensus, link_dp, traceback
 from .msa import build_edges
 from .tags import (
+    ASCII_TO_CNS,
+    TagColumns,
     WindowAccum,
     expand_columns,
     read_columns,
+    reference_row,
     trim_read_columns,
 )
 
@@ -78,82 +81,25 @@ def window_prep(batch: AlnBatch, tid: int, contig_ascii: np.ndarray,
     """Host preparation of one window (pos window-local): read filtering,
     tag expansion, structural pass — everything in the per-window body of
     ctg_cns_core before the link DP.  Returns a WindowWork for
-    window_dp (host engines) or the batcher + window_repair."""
+    window_dp (host engines) or the batcher + window_repair.
+
+    The read pass runs through the native tag walker (cns_tags.cpp), with
+    the structural layer on or off; the Python read loop, its oracle,
+    runs only where the native library is not built.  The counters
+    cns.prep.walker_windows and cns.prep.loop_windows count the windows
+    of each path."""
+    from ... import native
+
     L = e - s
     brk_g = struct_ctx is not None and struct_ctx.brk_g
-    if not brk_g:
-        with trace.timed("cns.prep.reads"):
-            work = _window_prep_native(batch, tid, contig_ascii, s, e,
-                                       read_type, contig_name)
-        if work is not None:
-            return work
-    accum = WindowAccum(contig_ascii, s, e, GAP_MIN_LEN[read_type])
-    has_tags = batch.tags is not None
-    max_clip = MAX_CLIP_RATIO[read_type]
-    # window 0 extends the fetch so the depth track can sample 15 Mb
-    rege_limit = max(e, st.INS_RADOM_LEN) if (s == 0 and brk_g) else e
-    if brk_g:
-        struct_ctx.depth.reset_window(e - s)
-
-    gaps: list[st.GapInfo] = []
-    sup_alns: list[st.SupAln] = []
+    walker = native.available()
+    trace.count("cns.prep.walker_windows" if walker
+                else "cns.prep.loop_windows", 1)
     with trace.timed("cns.prep.reads"):
-        ridx = np.flatnonzero(region_overlap_mask(batch, tid, s,
-                                                  max(rege_limit - 1, s)))
-        flags = batch.flag
-        poss = batch.pos
-        lqs = batch.lqseq
-        for r in ridx:
-            r = int(r)
-            rege_flag = int(poss[r]) < e
-            g = (st.read_gap_candidate(batch, r, contig_name)
-                 if has_tags else st.GapCand())
-            flag = int(flags[r])
-            cig = batch.rec_cigar(r)
-            l_qseq = int(lqs[r])
-            if l_qseq == 0 and len(cig):
-                ops, lens = cig & 0xF, cig >> 4
-                l_qseq = int(lens[np.isin(ops, (0, 1, 4, 5, 7, 8))].sum())
-            if l_qseq == 0:
-                continue
-
-            def clip(end):
-                if not len(cig):
-                    return 0
-                c = cig[-1] if end else cig[0]
-                return int(c >> 4) if (c & 0xF) in (4, 5) else 0
-
-            rd_s = clip(0)
-            rd_e = l_qseq - clip(1)
-            if flag & 0xD04:
-                if rege_flag and brk_g and g.score:
-                    sup_alns.append(st.SupAln(int(poss[r]), rd_s,
-                                              cig.copy()))
-                continue
-            if (not g.score) and (rd_e - rd_s) / l_qseq <= max_clip:
-                continue
-            if brk_g:
-                struct_ctx.depth.add_read(int(poss[r]),
-                                          st._endpos(batch, r), s)
-            if not rege_flag:
-                continue
-            tr = trim_read_columns(*read_columns(batch, r), accum.ref_cns,
-                                   s, e)
-            if tr is None:
-                continue
-            t_local, delta, qbase, q_s = tr
-            cov_s = accum.cov_at(int(t_local[0]))
-            cov_e = accum.cov_at(int(t_local[-1]) + 1)
-            if ((cov_s > 3000 and cov_e > 3000)
-                    or (cov_s > 500 and cov_e > 500
-                        and rd_e - rd_s < l_qseq * 0.9)):
-                continue
-            row_id = accum.add_row(t_local, delta, qbase, r)
-            if brk_g and g.score and g.gap_s >= s and g.gap_e <= e:
-                gaps.append(st.GapInfo(g.gap_s, g.gap_e, row_id, q_s,
-                                       g.fs, g.ds, 0,
-                                       batch.rec_seq_nib(r).copy()))
-
+        read_pass = _read_pass_walker if walker else _read_pass_loop
+        accum, gaps, sup_alns = read_pass(
+            batch, tid, contig_ascii, s, e, read_type,
+            struct_ctx if brk_g else None, contig_name)
     clusters: list[st.GapCluster] = []
     if brk_g:
         with trace.timed("cns.prep.struct"):
@@ -162,6 +108,188 @@ def window_prep(batch: AlnBatch, tid: int, contig_ascii: np.ndarray,
     coverage = accum.coverage[:L] + 1
     return WindowWork(merged, coverage, L, accum.l_ins, accum.l_del,
                       clusters)
+
+
+def _read_pass_loop(batch: AlnBatch, tid: int, contig_ascii: np.ndarray,
+                    s: int, e: int, read_type: str,
+                    struct_ctx: StructState | None, contig_name: str):
+    """The read pass one read at a time (ctg_cns_core :3474-3552): the
+    window's rows in a WindowAccum; with the structural layer on
+    (`struct_ctx`), also the depth track, and the split reads' gaps and
+    supplementary alignments.  Returns (accum, gaps, sup_alns)."""
+    brk_g = struct_ctx is not None
+    gaps: list[st.GapInfo] = []
+    sup_alns: list[st.SupAln] = []
+    accum = WindowAccum(contig_ascii, s, e, GAP_MIN_LEN[read_type])
+    has_tags = batch.tags is not None
+    max_clip = MAX_CLIP_RATIO[read_type]
+    # window 0 extends the fetch so the depth track can sample 15 Mb
+    rege_limit = max(e, st.INS_RADOM_LEN) if (s == 0 and brk_g) else e
+    if brk_g:
+        struct_ctx.depth.reset_window(e - s)
+    ridx = np.flatnonzero(region_overlap_mask(batch, tid, s,
+                                              max(rege_limit - 1, s)))
+    flags = batch.flag
+    poss = batch.pos
+    lqs = batch.lqseq
+    for r in ridx:
+        r = int(r)
+        rege_flag = int(poss[r]) < e
+        g = (st.read_gap_candidate(batch, r, contig_name)
+             if has_tags else st.GapCand())
+        flag = int(flags[r])
+        cig = batch.rec_cigar(r)
+        l_qseq = int(lqs[r])
+        if l_qseq == 0 and len(cig):
+            ops, lens = cig & 0xF, cig >> 4
+            l_qseq = int(lens[np.isin(ops, (0, 1, 4, 5, 7, 8))].sum())
+        if l_qseq == 0:
+            continue
+
+        def clip(end):
+            if not len(cig):
+                return 0
+            c = cig[-1] if end else cig[0]
+            return int(c >> 4) if (c & 0xF) in (4, 5) else 0
+
+        rd_s = clip(0)
+        rd_e = l_qseq - clip(1)
+        if flag & 0xD04:
+            if rege_flag and brk_g and g.score:
+                sup_alns.append(st.SupAln(int(poss[r]), rd_s, cig.copy()))
+            continue
+        if (not g.score) and (rd_e - rd_s) / l_qseq <= max_clip:
+            continue
+        if brk_g:
+            struct_ctx.depth.add_read(int(poss[r]), st._endpos(batch, r), s)
+        if not rege_flag:
+            continue
+        tr = trim_read_columns(*read_columns(batch, r), accum.ref_cns, s, e)
+        if tr is None:
+            continue
+        t_local, delta, qbase, q_s = tr
+        cov_s = accum.cov_at(int(t_local[0]))
+        cov_e = accum.cov_at(int(t_local[-1]) + 1)
+        if ((cov_s > 3000 and cov_e > 3000)
+                or (cov_s > 500 and cov_e > 500
+                    and rd_e - rd_s < l_qseq * 0.9)):
+            continue
+        row_id = accum.add_row(t_local, delta, qbase, r)
+        if brk_g and g.score and g.gap_s >= s and g.gap_e <= e:
+            gaps.append(st.GapInfo(g.gap_s, g.gap_e, row_id, q_s,
+                                   g.fs, g.ds, 0,
+                                   batch.rec_seq_nib(r).copy()))
+    return accum, gaps, sup_alns
+
+
+# cigar ops whose lengths give l_qseq where a record stores no sequence
+# (M, I, S, H, =, X: the read loop's rule)
+_QUERY_OPS = np.zeros(16, dtype=np.int64)
+_QUERY_OPS[[0, 1, 4, 5, 7, 8]] = 1
+
+
+def _query_lens(batch: AlnBatch, ridx: np.ndarray) -> np.ndarray:
+    """l_qseq of the records `ridx`, summed from the cigar where the
+    record stores no sequence."""
+    lq = batch.lqseq[ridx].astype(np.int64)
+    z = np.flatnonzero((lq == 0) & (batch.cigar_len[ridx] > 0))
+    if len(z):
+        n = batch.cigar_len[ridx[z]].astype(np.int64)
+        first = np.cumsum(n) - n
+        words = batch.cigar[np.repeat(batch.cigar_off[ridx[z]] - first, n)
+                            + np.arange(int(n.sum()))]
+        lq[z] = np.add.reduceat(
+            (words >> 4).astype(np.int64) * _QUERY_OPS[words & 0xF], first)
+    return lq
+
+
+def _read_pass_walker(batch: AlnBatch, tid: int, contig_ascii: np.ndarray,
+                      s: int, e: int, read_type: str,
+                      struct_ctx: StructState | None, contig_name: str):
+    """_read_pass_loop's result through the native tag walker: the read
+    filters, the depth track and the split reads' gaps and supplementary
+    alignments as whole-array steps over the region's reads (SA tags are
+    parsed only on the records that hold the bytes of one), then one
+    native walk over the window's row candidates in BAM order (it holds
+    the sequential coverage-overload check)."""
+    from ... import native
+
+    brk_g = struct_ctx is not None
+    gaps: list[st.GapInfo] = []
+    sup_alns: list[st.SupAln] = []
+    L = e - s
+    # window 0 extends the fetch so the depth track can sample 15 Mb
+    rege_limit = max(e, st.INS_RADOM_LEN) if (s == 0 and brk_g) else e
+    ridx = np.flatnonzero(region_overlap_mask(batch, tid, s,
+                                              max(rege_limit - 1, s)))
+    pos = batch.pos[ridx].astype(np.int64)
+    lq = _query_lens(batch, ridx)
+    left, right = batch.clip_lens()
+    rd_s = left[ridx]
+    rd_e = lq - right[ridx]
+    has_seq = lq > 0
+    primary = (batch.flag[ridx] & 0xD04) == 0
+    rege = pos < e
+    pass_clip = np.zeros(len(ridx), dtype=bool)
+    pass_clip[has_seq] = ((rd_e[has_seq] - rd_s[has_seq]) / lq[has_seq]
+                          > MAX_CLIP_RATIO[read_type])
+    # split-read gap candidates (score > 0), by position in ridx
+    cands = {}
+    need = has_seq & batch.sa_tagged()[ridx]
+    if not brk_g:  # only the clip filter's bypass reads them
+        need &= primary & ~pass_clip
+    for i in np.flatnonzero(need).tolist():
+        g = st.read_gap_candidate(batch, int(ridx[i]), contig_name)
+        if g.score:
+            cands[i] = g
+    split = np.zeros(len(ridx), dtype=bool)
+    split[list(cands)] = True
+    passed = has_seq & primary & (pass_clip | split)
+    if brk_g:
+        for i in np.flatnonzero(has_seq & ~primary & rege & split).tolist():
+            r = int(ridx[i])
+            sup_alns.append(st.SupAln(int(pos[i]), int(rd_s[i]),
+                                      batch.rec_cigar(r).copy()))
+        struct_ctx.depth.reset_window(L)
+        span = batch.ref_span()[ridx[passed]].astype(np.int64)
+        struct_ctx.depth.add_reads(pos[passed], pos[passed] + span, s)
+    # a record that stores no sequence makes no row (the loop's
+    # read_columns has no bases to read there)
+    rows = np.flatnonzero(passed & rege & (batch.lqseq[ridx] > 0))
+    sel = ridx[rows]
+    out = native.cns_tags(
+        sel, batch.pos, batch.cigar, batch.cigar_off, batch.cigar_len,
+        batch.seq, batch.seq_off, batch.lqseq, rd_s[rows], rd_e[rows],
+        ASCII_TO_CNS[contig_ascii[s:e]], s, e,
+        gap_min_len=GAP_MIN_LEN[read_type])
+    if out is None:
+        raise RuntimeError("the native tag walker failed")
+    keep = out["keep"]
+    if brk_g and cands:
+        row_id = np.cumsum(keep)  # 1 + rank among kept rows (0: the draft)
+        for k in np.flatnonzero(keep & split[rows]).tolist():
+            g = cands[int(rows[k])]
+            if g.gap_s >= s and g.gap_e <= e:
+                gaps.append(st.GapInfo(
+                    g.gap_s, g.gap_e, int(row_id[k]), int(out["q_s"][k]),
+                    g.fs, g.ds, 0, batch.rec_seq_nib(int(sel[k])).copy()))
+    # the reference row first (WindowAccum seeds the MSA with the draft,
+    # lib/ctg_cns.c:3457-3468)
+    rt, rd, rq = reference_row(contig_ascii, s, e)
+    row_off = np.concatenate([[0], out["row_off"] + L])
+    read_of = np.repeat(np.arange(len(row_off) - 1, dtype=np.int32),
+                        np.diff(row_off))
+    cols = TagColumns(
+        read_of, np.concatenate([rt, out["t_pos"]]),
+        np.concatenate([rd, out["delta"]]),
+        np.concatenate([rq, out["q_base"]]), row_off.astype(np.int64),
+        np.concatenate([[0], out["aln_s"]]).astype(np.int32),
+        np.concatenate([[L - 1], out["aln_e"]]).astype(np.int32),
+        np.concatenate([[-1], sel[keep]]).astype(np.int64))
+    accum = WindowAccum.holding(contig_ascii, s, e, GAP_MIN_LEN[read_type],
+                                cols, out["coverage"], out["l_ins"],
+                                out["l_del"], out["max_delta"])
+    return accum, gaps, sup_alns
 
 
 def _struct_pass(struct_ctx: StructState, accum: WindowAccum, gaps: list,
@@ -209,62 +337,6 @@ def _struct_pass(struct_ctx: StructState, accum: WindowAccum, gaps: list,
         st.update_split_p(struct_ctx.split_ps, clusters, ld, s, e - s,
                           struct_ctx.qv)
     return clusters
-
-
-def _window_prep_native(batch: AlnBatch, tid: int,
-                        contig_ascii: np.ndarray, s: int, e: int,
-                        read_type: str, contig_name: str):
-    """Non-structural window prep through the native single-pass tag
-    walker (cns_tags.cpp); returns None to fall back to the python loop
-    (which is the oracle it is tested against)."""
-    from ... import native
-
-    if not native.available():
-        return None
-    from .tags import ASCII_TO_CNS, TagColumns, reference_row
-
-    L = e - s
-    m = region_overlap_mask(batch, tid, s, max(e - 1, s))
-    m &= (batch.flag & 0xD04) == 0
-    m &= batch.lqseq > 0
-    ridx = np.flatnonzero(m)
-    # clip filter with the split-read gap-candidate bypass
-    left, right = batch.clip_lens()
-    lq = batch.lqseq[ridx].astype(np.int64)
-    rd_s = left[ridx].astype(np.int32)
-    rd_e = (lq - right[ridx]).astype(np.int32)
-    pass_clip = (rd_e - rd_s) / lq > MAX_CLIP_RATIO[read_type]
-    if batch.tags is not None and not pass_clip.all():
-        for i in np.flatnonzero(~pass_clip):
-            g = st.read_gap_candidate(batch, int(ridx[i]), contig_name)
-            if g.score:
-                pass_clip[i] = True
-    sel = ridx[pass_clip]
-    rd_s = rd_s[pass_clip]
-    rd_e = rd_e[pass_clip]
-    out = native.cns_tags(
-        sel, batch.pos, batch.cigar, batch.cigar_off, batch.cigar_len,
-        batch.seq, batch.seq_off, batch.lqseq, rd_s, rd_e,
-        ASCII_TO_CNS[contig_ascii[s:e]], s, e,
-        gap_min_len=GAP_MIN_LEN[read_type])
-    if out is None:
-        return None
-    # assemble the merged TagColumns with the reference row first
-    # (WindowAccum seeds the MSA with the draft, lib/ctg_cns.c:3457-3468)
-    rt, rd, rq = reference_row(contig_ascii, s, e)
-    t_pos = np.concatenate([rt, out["t_pos"]])
-    delta = np.concatenate([rd, out["delta"]])
-    q_base = np.concatenate([rq, out["q_base"]])
-    row_off = np.concatenate([[0], out["row_off"] + L])
-    lens = np.diff(row_off)
-    read_of = np.repeat(np.arange(len(lens), dtype=np.int32), lens)
-    merged = TagColumns(
-        read_of, t_pos, delta, q_base, row_off.astype(np.int64),
-        np.concatenate([[0], out["aln_s"]]).astype(np.int32),
-        np.concatenate([[L - 1], out["aln_e"]]).astype(np.int32),
-        np.concatenate([[-1], sel[out["keep"]]]).astype(np.int64))
-    coverage = out["coverage"][:L] + 1
-    return WindowWork(merged, coverage, L, out["l_ins"], out["l_del"], [])
 
 
 @dataclass

@@ -27,6 +27,9 @@ _BUILD = os.path.join(os.path.dirname(_DIR), "_build")
 _MAKEFILE = os.path.join(_DIR, "Makefile")
 _LIB = None
 _TRIED = False
+# threads that ask for the library while the first caller loads it wait
+# for that load, and do not read the half-done state as "no library"
+_LOAD_LOCK = threading.Lock()
 
 
 def _makefile_sources() -> list:
@@ -83,7 +86,16 @@ def _load():
     global _LIB, _TRIED
     if _LIB is not None or _TRIED:
         return _LIB
-    _TRIED = True
+    with _LOAD_LOCK:
+        if not _TRIED:
+            _LIB = _open()
+            _TRIED = True
+    return _LIB
+
+
+def _open():
+    """Build and open the library, with its entry points typed; None
+    where it cannot be built or opened."""
     try:
         so = build()
     except Exception:
@@ -115,8 +127,7 @@ def _load():
         lib.npt_cns_prep_free.restype = None
     if hasattr(lib, "npt_cns_tags"):
         lib.npt_cns_tags.restype = ctypes.c_longlong
-    _LIB = lib
-    return _LIB
+    return lib
 
 
 def available() -> bool:

@@ -33,3 +33,32 @@ def test_loaded_library_has_the_pileup_walker():
     lib = native._load()
     for fn in ("npt_pileup_planes", "npt_pileup_sgs", "npt_cell_index"):
         assert hasattr(lib, fn), fn
+
+
+def test_first_load_from_many_threads(monkeypatch):
+    """Threads that ask for the library while the first caller loads it
+    all get it: none reads the load in progress as "no library" (engine
+    2's contigs prep on several threads from the first window on, and a
+    window that read it so would take the Python read loop)."""
+    import threading
+
+    if not native.available():
+        import pytest
+
+        pytest.skip("no C++ compiler here")
+    for _ in range(5):
+        monkeypatch.setattr(native, "_LIB", None)
+        monkeypatch.setattr(native, "_TRIED", False)
+        start = threading.Barrier(8)
+        got = []
+
+        def ask():
+            start.wait()
+            got.append(native.available())
+
+        threads = [threading.Thread(target=ask) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert got == [True] * 8

@@ -271,7 +271,7 @@ def test_host_engine_spans(case, monkeypatch, clean):
 
 
 def test_structural_pass_span(monkeypatch, tmp_path, clean):
-    """A window of a contig over INS_MIN_CHECK_LEN takes the read loop
+    """A window of a contig over INS_MIN_CHECK_LEN takes the read pass
     and, while the structural layer is on, the structural pass: each
     under its own span inside cns.prep."""
     from nextpolish_tpu_torch.io.bam import read_bam
