@@ -42,7 +42,8 @@ def readings(workload: str, seed: int, device: str, every: bool = False,
                             dir=tempfile.gettempdir())
     try:
         sd = harness.seeds_of(seed, 4)
-        blocks = [harness.make_block(cfg, lens, s, work, f"block{b}")
+        blocks = [harness.make_block(cfg, lens, s, work, f"block{b}",
+                                     root)
                   for b, (lens, s) in enumerate(
                       zip(traffic["pool"],
                           harness.seeds_of(sd[0], len(traffic["pool"]))))]

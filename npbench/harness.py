@@ -9,15 +9,19 @@ own, found by name:
                                   (BENCHMARK.json's `file`)
   npbench/cells/<cell>.json       the traffic: the pool of blocks (contig
                                   lengths), the contigs a check compares
+  npbench/gens/<reads.kind>.py    one generator a read kind:
+                                  simulate(seed, lens, config) ->
+                                  simgen.SimCase
   npbench/jobs/<kind>.py          how one job runs the program, and its
                                   plain reference
   npbench/metrics/<metric>.py     one reader a metric: read(ctx) -> number
                                   or None
 
 A run:
-  1. makes its inputs from --seed with the benchmark's own generator
-     (npbench/simgen.py) into a directory under TMPDIR: per block of the
-     cell's pool a draft FASTA and a sorted, indexed BAM;
+  1. makes its inputs from --seed with the configuration's read
+     generator (npbench/gens/, on the benchmark's own npbench/simgen.py)
+     into a directory under TMPDIR: per block of the cell's pool a draft
+     FASTA and a sorted, indexed BAM;
   2. runs one warm job on the pool's first block, which loads the
      program's kernels (built into the checkout's
      nextpolish_tpu_torch/_build/ on a checkout's first run) and warms
@@ -97,14 +101,20 @@ def cell_spec(workload: str, root: str = ROOT) -> dict:
         run_seconds=int(man["run_seconds"]))
 
 
-def load_reader(name: str, root: str = ROOT):
-    """npbench/metrics/<name>.py's read function."""
-    path = os.path.join(root, "npbench", "metrics", name + ".py")
+def load_file(folder: str, name: str, root: str = ROOT):
+    """npbench/<folder>/<name>.py, loaded as a module of its own."""
+    path = os.path.join(root, "npbench", folder, name + ".py")
     spec = importlib.util.spec_from_file_location(
-        "npbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        f"npbench_{folder}_" + name.replace(".", "_").replace("-", "_"),
+        path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(name: str, root: str = ROOT):
+    """npbench/metrics/<name>.py's read function."""
+    return load_file("metrics", name, root).read
 
 
 def job_kind(config: dict):
@@ -141,28 +151,18 @@ class Block:
 
 
 def make_block(config: dict, lens: list, seed: int, outdir: str,
-               name: str) -> Block:
+               name: str, root: str = ROOT) -> Block:
     """A block of contigs of the given lengths with the configuration's
-    reads, generated from `seed` and written under outdir/name."""
+    reads, generated from `seed` by the generator of its read kind,
+    npbench/gens/<reads.kind>.py, and written under outdir/name."""
     from npbench import simgen
 
-    r = config["reads"]
-    if r["kind"] == "paired_end":
-        case = simgen.simulate_short_case(
-            seed, lens, r["depth"], read_len=r["read_len"],
-            insert=(r["insert_mean"], r["insert_sd"]), sub=r["sub"],
-            ins=r["ins"], dele=r["del"], draft_sub=config["draft_sub"],
-            draft_ins=config.get("draft_ins", 0.0),
-            draft_del=config.get("draft_del", 0.0))
-    elif r["kind"] == "long":
-        case = simgen.simulate_case(
-            seed, len(lens), lens, r["depth"],
-            read_len=tuple(r["read_len"]), sub=r["sub"], ins=r["ins"],
-            dele=r["del"], draft_sub=config["draft_sub"],
-            rev_frac=r["rev_frac"], draft_ins=config.get("draft_ins", 0.0),
-            draft_del=config.get("draft_del", 0.0))
-    else:
-        raise ValueError(f"unknown read kind {r['kind']!r}")
+    kind = config["reads"]["kind"]
+    folder = os.path.join(root, "npbench", "gens")
+    if not os.path.isfile(os.path.join(folder, kind + ".py")):
+        raise ValueError(f"unknown read kind {kind!r}: no {kind}.py in "
+                         f"{folder}")
+    case = load_file("gens", kind, root).simulate(seed, lens, config)
     fa, bam = simgen.write_case(case, os.path.join(outdir, name))
     return Block(name, case.names, case.truths, case.drafts, case.records,
                  fa, bam)
@@ -331,7 +331,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         sd = seeds_of(seed, 4)
         bseeds = seeds_of(sd[0], len(pool))
         t = time.perf_counter()
-        blocks = [make_block(cfg, lens, s, work, f"block{b}")
+        blocks = [make_block(cfg, lens, s, work, f"block{b}", root)
                   for b, (lens, s) in enumerate(zip(pool, bseeds))]
         # the warm job polishes the pool's first block, so the window's
         # shapes are all warm before it opens

@@ -43,13 +43,15 @@ def scratch_root(tmp, job: str, pool, metrics=("polished_bases_per_s",
                  per_layer=(), cell="stub.chrom", config="stub_cfg",
                  check_contigs=1):
     """A directory with a BENCHMARK.json of one cell and the benchmark's
-    readers, the cell's config and traffic in files of their own."""
+    readers and read generators, the cell's config and traffic in files
+    of their own."""
     root = str(tmp)
     os.makedirs(os.path.join(root, "npbench", "configs"), exist_ok=True)
     os.makedirs(os.path.join(root, "npbench", "cells"), exist_ok=True)
-    shutil.copytree(os.path.join(harness.ROOT, "npbench", "metrics"),
-                    os.path.join(root, "npbench", "metrics"),
-                    dirs_exist_ok=True)
+    for d in ("metrics", "gens"):
+        shutil.copytree(os.path.join(harness.ROOT, "npbench", d),
+                        os.path.join(root, "npbench", d),
+                        dirs_exist_ok=True)
     with open(os.path.join(root, "npbench", "configs", config + ".json"),
               "w") as fh:
         json.dump({"name": config, "job": job, "reads": SHORT,
@@ -72,33 +74,6 @@ def scratch_root(tmp, job: str, pool, metrics=("polished_bases_per_s",
                           "source": "device_trace", "layer": "x",
                           "moves": metrics[0], "workloads": [cell]}
                          for m in per_layer]}
-    with open(os.path.join(root, "BENCHMARK.json"), "w") as fh:
-        json.dump(man, fh)
-    return root
-
-
-# cells whose files the benchmark keeps but BENCHMARK.json leaves out
-# (PERF.md says why), with their configurations
-HELD_OUT = {"sgs_pe150_50x.chrom": "sgs_pe150_50x"}
-
-
-def with_held_out(tmp, cell: str) -> str:
-    """A copy of the benchmark's manifest and files with a held-out cell
-    and its configuration put back, for tests of its job kind and
-    reference."""
-    root = str(tmp)
-    for d in ("configs", "cells", "metrics"):
-        shutil.copytree(os.path.join(harness.ROOT, "npbench", d),
-                        os.path.join(root, "npbench", d),
-                        dirs_exist_ok=True)
-    with open(os.path.join(harness.ROOT, "BENCHMARK.json")) as fh:
-        man = json.load(fh)
-    config = HELD_OUT[cell]
-    man["configs"].append({"name": config, "source": "x",
-                           "file": f"npbench/configs/{config}.json",
-                           "reduced": [], "why": "x"})
-    man["workloads"].append({"name": cell, "config": config,
-                             "traffic": "chrom", "chips": 1, "why": "x"})
     with open(os.path.join(root, "BENCHMARK.json"), "w") as fh:
         json.dump(man, fh)
     return root

@@ -126,13 +126,17 @@ def test_refuses_without_the_program(tmp_path):
 
 
 def test_manifest_contract():
-    """BENCHMARK.json names only files under its paths, and every metric
-    and cell has its file."""
+    """BENCHMARK.json names only files under its paths, and every metric,
+    cell and configuration's read kind has its file."""
     man = json.load(open(os.path.join(harness.ROOT, "BENCHMARK.json")))
     assert man["paths"] == ["npbench"]
     for c in man["configs"]:
         assert c["file"].startswith("npbench/")
         assert os.path.exists(os.path.join(harness.ROOT, c["file"]))
+        kind = harness.load_json(os.path.join(harness.ROOT, c["file"]))[
+            "reads"]["kind"]
+        assert os.path.exists(os.path.join(harness.ROOT, "npbench", "gens",
+                                           kind + ".py"))
     for w in man["workloads"]:
         spec = harness.cell_spec(w["name"])
         assert spec["traffic"]["config"] == w["config"]

@@ -1,18 +1,41 @@
-"""The yardstick: the generator repeats per seed and does not move, the
-device trace's union and gaps, the roofline's bytes and operations."""
+"""The yardstick: the generators repeat per seed, are found by name and
+do not move, the device trace's union and gaps, the roofline's bytes and
+operations."""
 import hashlib
+import os
 
+import numpy as np
 import pytest
 
 from npbench import devtrace, harness, roofline, simgen
+from npbench.tests import stub
 
 
-def _digest(case, tmp):
-    fa, bam = simgen.write_case(case, str(tmp))
+def _files_digest(fa, bam):
     h = hashlib.sha256()
     for p in (fa, bam, bam + ".bai"):
         h.update(open(p, "rb").read())
     return h.hexdigest()
+
+
+def _digest(case, tmp):
+    return _files_digest(*simgen.write_case(case, str(tmp)))
+
+
+# configurations whose generators (npbench/gens/) draw what the frozen
+# cases below draw through simgen's own defaults
+SHORT = {"reads": dict(stub.SHORT, depth=20), "draft_sub": 0.005}
+LONG = {"reads": {"kind": "long", "depth": 8, "read_len": [3000, 12000],
+                  "sub": 0.03, "ins": 0.03, "del": 0.03, "rev_frac": 0.5},
+        "draft_sub": 0.005}
+DIPLOID = {"reads": dict(SHORT["reads"], kind="paired_end_diploid",
+                         het_sub=0.001),
+           "draft_sub": 0.001, "draft_ins": 0.0006, "draft_del": 0.0006}
+
+
+def _block_digest(config, lens, seed, tmp):
+    b = harness.make_block(config, lens, seed, str(tmp), "b")
+    return _files_digest(b.fa, b.bam)
 
 
 def test_generator_repeats_per_seed(tmp_path):
@@ -33,11 +56,100 @@ FROZEN = {
 }
 
 
+@pytest.mark.parametrize("via", ["simgen", "make_block"])
 @pytest.mark.parametrize("kind", ["short", "long"])
-def test_generator_frozen(tmp_path, kind):
+def test_generator_frozen(tmp_path, kind, via):
+    """The frozen cases, drawn by simgen and through make_block's
+    generator files (npbench/gens/paired_end.py, long.py)."""
+    if via == "make_block":
+        config, lens = ((SHORT, [3000, 2000]) if kind == "short"
+                        else (LONG, [6000, 5000]))
+        assert _block_digest(config, lens, 7, tmp_path) == FROZEN[kind]
+        return
     case = (simgen.simulate_short_case(7, [3000, 2000], 20) if kind ==
             "short" else simgen.simulate_case(7, 2, [6000, 5000], 8))
     assert _digest(case, tmp_path) == FROZEN[kind]
+
+
+def test_generator_found_by_name(tmp_path):
+    """A read kind added as a file under npbench/gens/ is found by the
+    configuration's `reads.kind`, with no edit to the harness."""
+    root = stub.scratch_root(tmp_path / "root", "stub_gen", [[2000]])
+    with open(os.path.join(root, "npbench", "gens", "short_twice.py"),
+              "w") as fh:
+        fh.write("from npbench import simgen\n\n\n"
+                 "def simulate(seed, lens, config):\n"
+                 "    return simgen.simulate_short_case(\n"
+                 "        seed, list(lens) * 2, config['reads']['depth'])\n")
+    config = {"reads": {"kind": "short_twice", "depth": 5}}
+    b = harness.make_block(config, [3000], 4, str(tmp_path), "b", root)
+    assert b.names == ["ctg0", "ctg1"]
+    assert b.drafts == simgen.simulate_short_case(4, [3000, 3000], 5).drafts
+
+
+def test_unknown_read_kind_raises(tmp_path):
+    with pytest.raises(ValueError) as e:
+        harness.make_block({"reads": {"kind": "no_such_kind"}}, [2000], 1,
+                           str(tmp_path), "b")
+    assert "no_such_kind" in str(e.value)
+    assert os.path.join(harness.ROOT, "npbench", "gens") in str(e.value)
+
+
+# sha256 of make_block(DIPLOID, [3000, 2000], 7, ...): the diploid
+# generator's output, which no later change may move
+FROZEN_DIPLOID = (
+    "c135fb80c73c2a22287ec9525ba0e647498ca96b695e1de68f04352fb0ca622c")
+
+
+def test_diploid_generator_frozen_and_repeats(tmp_path):
+    a = _block_digest(DIPLOID, [3000, 2000], 7, tmp_path / "a")
+    assert a == _block_digest(DIPLOID, [3000, 2000], 7, tmp_path / "b")
+    assert a == FROZEN_DIPLOID
+    assert a != _block_digest(DIPLOID, [3000, 2000], 8, tmp_path / "c")
+
+
+def test_diploid_haplotypes_differ_by_substitutions():
+    """hap2 is hap1 with substitutions only (same length, every base in
+    ACGT), at het_sub within four standard deviations."""
+    gen = harness.load_file("gens", "paired_end_diploid")
+    n, rate = 200000, DIPLOID["reads"]["het_sub"]
+    hap1, hap2 = gen.haplotypes(np.random.default_rng(5), n, rate)
+    assert len(hap1) == len(hap2) == n
+    assert set(np.unique(hap2).tolist()) <= set(b"ACGT")
+    k = int((hap1 != hap2).sum())
+    assert abs(k - n * rate) < 4 * (n * rate) ** 0.5
+
+
+def test_diploid_reads_split_between_haplotypes(tmp_path):
+    """Reads named a... come from hap1 and b... from hap2, each at about
+    half the depth: at the heterozygous sites, a gapless read's base is
+    its own haplotype's allele but for its error rate (the draft without
+    indels here, so draft and haplotype positions agree)."""
+    depth, length, seed = 20, 30000, 11
+    config = dict(DIPLOID, reads=dict(DIPLOID["reads"], depth=depth),
+                  draft_ins=0.0, draft_del=0.0)
+    b = harness.make_block(config, [length], seed, str(tmp_path), "b")
+    gen = harness.load_file("gens", "paired_end_diploid")
+    hap1, hap2 = gen.haplotypes(np.random.default_rng(seed), length,
+                                config["reads"]["het_sub"])
+    assert b.truths == [hap1.tobytes()]
+    het = np.flatnonzero(hap1 != hap2)
+    assert len(het) > 10
+    for tag, hap in (("a", hap1), ("b", hap2)):
+        recs = [r for r in b.records if r["name"].startswith(tag)]
+        cov = sum(len(r["seq_nib"]) for r in recs) / length
+        assert abs(cov - depth / 2) < 0.05 * depth, tag
+        own = seen = 0
+        for r in recs:
+            if len(r["cigar"]) != 1:
+                continue
+            seq = bytes(NIB[n] for n in r["seq_nib"])
+            for p in het[(het >= r["pos"])
+                         & (het < r["pos"] + len(seq))].tolist():
+                seen += 1
+                own += seq[p - r["pos"]] == hap[p]
+        assert seen > 50 and own / seen > 0.95, tag
+    assert all(r["name"][0] in "ab" for r in b.records)
 
 
 def test_block_seeds_take_large_seeds():
@@ -134,12 +246,28 @@ def _aligned(case):
     return tot, mm
 
 
-@pytest.mark.parametrize("kind", ["short", "long"])
-def test_draft_indels_alignments_hold(kind):
+@pytest.mark.parametrize("kind", ["short", "long", "diploid"])
+def test_draft_indels_alignments_hold(kind, tmp_path):
     """With indels in the draft the reads' composed alignments still
     hold: walked along the draft, their M bases differ at about the
-    reads' and the draft's substitution rates together, not at the 3/4
-    of a shifted alignment."""
+    reads' and the draft's substitution rates together (and, for hap2's
+    reads, the heterozygous rate), not at the 3/4 of a shifted
+    alignment."""
+    if kind == "diploid":
+        config = dict(DIPLOID, draft_sub=0.001, draft_ins=0.003,
+                      draft_del=0.003)
+        b = harness.make_block(config, [20000], 3, str(tmp_path), "b")
+        case = simgen.SimCase(b.names, b.truths, b.drafts, b.records)
+        assert len(case.drafts[0]) != len(case.truths[0])
+        for tag, rate in (("a", 0.01 + 0.001),
+                          ("b", 0.01 + 0.001 + 0.001)):
+            tot, mm = _aligned(simgen.SimCase(
+                b.names, b.truths, b.drafts,
+                [r for r in b.records if r["name"].startswith(tag)]))
+            assert 0.7 * rate < mm / tot < 1.3 * rate, tag
+        assert [r["pos"] for r in case.records] == sorted(
+            r["pos"] for r in case.records)
+        return
     if kind == "short":
         case = simgen.simulate_short_case(3, [20000], 20, draft_sub=0.001,
                                           draft_ins=0.003, draft_del=0.003)
@@ -162,8 +290,17 @@ FROZEN_INDELS = {
 }
 
 
+@pytest.mark.parametrize("via", ["simgen", "make_block"])
 @pytest.mark.parametrize("kind", ["short", "long"])
-def test_generator_with_draft_indels_frozen(tmp_path, kind):
+def test_generator_with_draft_indels_frozen(tmp_path, kind, via):
+    if via == "make_block":
+        config, lens = ((dict(SHORT, draft_ins=0.002, draft_del=0.002),
+                         [3000, 2000]) if kind == "short" else
+                        (dict(LONG, draft_sub=0.05, draft_ins=0.02,
+                              draft_del=0.02), [6000, 5000]))
+        assert _block_digest(config, lens, 7, tmp_path) == \
+            FROZEN_INDELS[kind]
+        return
     case = (simgen.simulate_short_case(7, [3000, 2000], 20,
                                        draft_ins=0.002, draft_del=0.002)
             if kind == "short" else
