@@ -298,29 +298,43 @@ def _struct_pass(struct_ctx: StructState, accum: WindowAccum, gaps: list,
     low-depth regions, the gap clusters with their supplementary
     realignment and gap sequences, and the split points.  Turns the
     contig's structural layer off (and returns no clusters) where the
-    window has too few rows, random reads or split reads."""
+    window has too few rows, random reads or split reads.
+
+    Spans (inside the caller's cns.prep.struct): cns.prep.struct.cluster
+    (low-depth regions, gap clusters), cns.prep.struct.realign (the
+    clusters' supplementary rows), cns.prep.struct.gapseq (gap
+    sequences, split points).  Counters a window: cns.struct.gaps and
+    cns.struct.sup_alns (the read pass's split-read gaps and
+    supplementary alignments), cns.struct.off_windows (the layer turned
+    itself off), cns.struct.clusters, cns.struct.sup_rows (rows added
+    with read id -2), cns.struct.split_points."""
+    trace.count("cns.struct.gaps", len(gaps))
+    trace.count("cns.struct.sup_alns", len(sup_alns))
     rr = struct_ctx.depth
     rr_count = (st.INS_RADOM_COUNT if rr.rreads_w
                 else len(rr.rreads))
     if accum.n_rows() < 150 or rr_count < 150 or not sup_alns:
         struct_ctx.brk_g = False
+        trace.count("cns.struct.off_windows", 1)
         return []
     d = struct_ctx.depth
     d.finish_reads(s)
     nbins = (e - s) // st.INS_WIN_STEP
     if not struct_ctx.ref_d:
         struct_ctx.ref_d = st.cal_ref_d(d.ref_ds, nbins)
-    ld = st.update_ld_regs(d.ref_ds, nbins, d.rreads_w,
-                           struct_ctx.ref_d)
-    if struct_ctx.ref_ide:
-        st.update_ld_regs_with_refqv(
-            ld, d.ref_ds, struct_ctx.qv, d.rreads_w * st.INS_WIN_DIV,
-            s, e,
-            int(struct_ctx.ref_d * st.INS_MIN_DEPTH_RATIO_REFQV),
-            int(struct_ctx.ref_ide * struct_ctx.ide_t),
-            struct_ctx.ort_t, struct_ctx.irt_t)
-    clusters = st.update_gap_cluster(gaps, d.ref_ds, d.rreads_w,
-                                     struct_ctx.ref_d, s)
+    with trace.timed("cns.prep.struct.cluster"):
+        ld = st.update_ld_regs(d.ref_ds, nbins, d.rreads_w,
+                               struct_ctx.ref_d)
+        if struct_ctx.ref_ide:
+            st.update_ld_regs_with_refqv(
+                ld, d.ref_ds, struct_ctx.qv, d.rreads_w * st.INS_WIN_DIV,
+                s, e,
+                int(struct_ctx.ref_d * st.INS_MIN_DEPTH_RATIO_REFQV),
+                int(struct_ctx.ref_ide * struct_ctx.ide_t),
+                struct_ctx.ort_t, struct_ctx.irt_t)
+        clusters = st.update_gap_cluster(gaps, d.ref_ds, d.rreads_w,
+                                         struct_ctx.ref_d, s)
+    trace.count("cns.struct.clusters", len(clusters))
 
     def add_sup_row(fs, cigar, nib):
         tr = trim_read_columns(*expand_columns(fs, cigar, nib),
@@ -330,12 +344,19 @@ def _struct_pass(struct_ctx: StructState, accum: WindowAccum, gaps: list,
         rid = accum.add_row(tr[0], tr[1], tr[2], -2)
         return rid, tr[3]
 
-    st.realign_cluster_sups(clusters, sup_alns, accum, accum.ref_cns,
-                            s, e, add_sup_row)
-    st.generate_gapseqs(clusters, accum, s)
-    if struct_ctx.ref_d > 15:
-        st.update_split_p(struct_ctx.split_ps, clusters, ld, s, e - s,
-                          struct_ctx.qv)
+    rows = accum.n_rows()
+    with trace.timed("cns.prep.struct.realign"):
+        st.realign_cluster_sups(clusters, sup_alns, accum, accum.ref_cns,
+                                s, e, add_sup_row)
+    trace.count("cns.struct.sup_rows", accum.n_rows() - rows)
+    split_ps = len(struct_ctx.split_ps)
+    with trace.timed("cns.prep.struct.gapseq"):
+        st.generate_gapseqs(clusters, accum, s)
+        if struct_ctx.ref_d > 15:
+            st.update_split_p(struct_ctx.split_ps, clusters, ld, s, e - s,
+                              struct_ctx.qv)
+    trace.count("cns.struct.split_points",
+                len(struct_ctx.split_ps) - split_ps)
     return clusters
 
 
@@ -526,9 +547,10 @@ def consensus_for_contig(batch: AlnBatch, tid: int, contig: bytes,
     analog of bam_merge_iter_init per window (lib/ctg_cns.c:3474).
 
     A window's spans serve the request `<contig_name>:<window start>`:
-    cns.fetch, cns.prep (cns.prep.reads, cns.prep.struct), cns.densify,
-    cns.queue (in the batcher), cns.dp (the submit, then the wait; the
-    host engines' DP of a group), cns.finish (cns.repair)."""
+    cns.fetch, cns.prep (cns.prep.reads, cns.prep.struct and the spans
+    inside it, _struct_pass), cns.densify, cns.queue (in the batcher),
+    cns.dp (the submit, then the wait; the host engines' DP of a group),
+    cns.finish (cns.repair)."""
     contig_ascii = np.frombuffer(contig.upper(), dtype=np.uint8)
     length = len(contig)
     b = cal_win_len(window, overlap, length)

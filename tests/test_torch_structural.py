@@ -288,3 +288,55 @@ def test_depth_track_add_reads_matches_jax(monkeypatch):
         ref.add_read(a, b, 1_000_000)
     assert one.rreads_w == ref.rreads_w
     assert np.array_equal(one.ref_ds, ref.ref_ds)
+
+
+@pytest.mark.parametrize("case", ["split", "no_sa"])
+def test_struct_pass_spans_and_counters(request, monkeypatch, case):
+    """The structural pass's spans nest under cns.prep.struct, and its
+    counters count what the pass received and did: the split reads'
+    gaps and supplementary alignments, the clusters, the rows added with
+    read id -2, the split points; a window where the layer turns itself
+    off counts in cns.struct.off_windows and opens no inner span."""
+    fixture, _, _ = WINDOWS[case]
+    name, draft, _, bam = request.getfixturevalue(fixture)
+    ctx = twin.StructState(brk_g=True, depth=st.DepthTrack(len(draft)),
+                           qv=[])
+    given = []
+    struct_pass = twin._struct_pass
+
+    def spy(ctx, accum, gaps, sups, s, e):
+        given.append((len(gaps), len(sups)))
+        return struct_pass(ctx, accum, gaps, sups, s, e)
+
+    monkeypatch.setattr(twin, "_struct_pass", spy)
+    trace.reset()
+    try:
+        with trace.timed("cns.prep"):
+            work = twin.window_prep(read_bam(bam), 0,
+                                    np.frombuffer(draft, np.uint8), 0,
+                                    len(draft), "ont", ctx, name)
+        recs = trace.spans("cns.prep.struct")
+        counts = {k: v["s"] for k, v in trace.snapshot("cns.struct.")
+                  .items()}
+    finally:
+        trace.reset()
+    (gaps, sups), = given
+    outer = recs[-1]
+    assert outer.name == "cns.prep.struct" and outer.parent == "cns.prep"
+    if case == "no_sa":
+        assert [r.name for r in recs] == ["cns.prep.struct"]
+        assert counts == {"cns.struct.gaps": 0, "cns.struct.sup_alns": 0,
+                          "cns.struct.off_windows": 1}
+        return
+    assert [r.name for r in recs] == [
+        "cns.prep.struct.cluster", "cns.prep.struct.realign",
+        "cns.prep.struct.gapseq", "cns.prep.struct"]
+    for r in recs[:-1]:
+        assert r.parent == "cns.prep.struct"
+        assert outer.start_ns <= r.start_ns <= r.end_ns <= outer.end_ns
+    assert counts == {
+        "cns.struct.gaps": gaps, "cns.struct.sup_alns": sups,
+        "cns.struct.clusters": len(work.clusters),
+        "cns.struct.sup_rows": int((work.merged.ridx == -2).sum()),
+        "cns.struct.split_points": len(ctx.split_ps)}
+    assert gaps and sups and work.clusters and counts["cns.struct.sup_rows"]
